@@ -1,0 +1,151 @@
+"""Fused SMPL vertex kernels K1 and K2 (csrc/smpl_lbs.cu) and their plain twins.
+
+The counterpart of `humaniflow_tpu/models/pallas_lbs.py`:
+
+* K2 `smpl_verts` (TPU: `_smpl_verts_kernel` via `smpl_verts_fused`):
+  template + shape and pose blend shapes + linear blend skinning in one
+  pass, written as (B, 3, V) vertices.
+* K1 `smpl_moments` (TPU: `_smpl_moments_kernel` via
+  `smpl_verts_moments_fused`): the same vertices for G groups of N samples,
+  reduced inside the kernel to (Σx, Σx²) over each group, (G, 2, 3, V); the
+  (G·N, 3, V) sample vertices never reach memory.
+
+Each wrapper computes its plain PyTorch twin when the tensors lie on the
+CPU.  For CUDA tensors it launches the kernel, or raises on a wrong dtype,
+device, layout or shape; it never falls back.  `LAUNCHES` counts the kernel
+launches of each wrapper, so a run can show that it went through the
+kernels.  The kernels are built with nvcc at first use (utils/cuda_build.py).
+
+Argument layouts (float32): a12 (..., 24, 12) per-joint [R (row-major 9) | t]
+rows, betas (..., NB), pose_feature (..., 207), v_template_cm (3, V),
+shapedirs_cm (NB, 3, V), posedirs_cm (207, 3, V), lbs_weights (V, 24).
+"""
+
+import ctypes
+
+import torch
+
+from ..utils.cuda_build import load_library
+
+LAUNCHES = {"smpl_verts": 0, "smpl_moments": 0}
+
+NUM_JOINTS = 24
+NUM_POSE_FEATURES = 207
+MAX_BETAS = 16  # csrc/smpl_lbs.cu kMaxBetas
+
+
+def smpl_verts_plain(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):
+    """Plain PyTorch twin of K2: (B, 3, V) skinned vertices."""
+    b = betas.shape[0]
+    v = v_template_cm.shape[1]
+    v_posed = (
+        v_template_cm
+        + torch.einsum("bl,lcv->bcv", betas, shapedirs_cm)
+        + torch.matmul(pose_feature, posedirs_cm.reshape(NUM_POSE_FEATURES, 3 * v)).reshape(b, 3, v)
+    )
+    t12 = torch.einsum("vj,bjr->brv", lbs_weights, a12)
+    return torch.stack(
+        [
+            t12[:, 3 * i] * v_posed[:, 0]
+            + t12[:, 3 * i + 1] * v_posed[:, 1]
+            + t12[:, 3 * i + 2] * v_posed[:, 2]
+            + t12[:, 9 + i]
+            for i in range(3)
+        ],
+        dim=1,
+    )
+
+
+def smpl_verts_moments_plain(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):
+    """Plain PyTorch twin of K1: a12 (G, N, 24, 12), betas (G, N, NB),
+    pose_feature (G, N, 207) → (G, 2, 3, V) = (Σx, Σx²) over each group."""
+    g, n = a12.shape[:2]
+    verts = smpl_verts_plain(
+        a12.reshape(g * n, NUM_JOINTS, 12),
+        betas.reshape(g * n, -1),
+        pose_feature.reshape(g * n, NUM_POSE_FEATURES),
+        v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights,
+    ).reshape(g, n, 3, -1)
+    return torch.stack([verts.sum(dim=1), (verts * verts).sum(dim=1)], dim=1)
+
+
+def _check(rows_shape, a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):
+    """Raise unless every argument is a contiguous, 16-byte aligned float32
+    CUDA tensor on one device with the shapes the kernel expects."""
+    v = v_template_cm.shape[-1]
+    nb = betas.shape[-1]
+    expected = {
+        "a12": (a12, rows_shape + (NUM_JOINTS, 12)),
+        "betas": (betas, rows_shape + (nb,)),
+        "pose_feature": (pose_feature, rows_shape + (NUM_POSE_FEATURES,)),
+        "v_template_cm": (v_template_cm, (3, v)),
+        "shapedirs_cm": (shapedirs_cm, (nb, 3, v)),
+        "posedirs_cm": (posedirs_cm, (NUM_POSE_FEATURES, 3, v)),
+        "lbs_weights": (lbs_weights, (v, NUM_JOINTS)),
+    }
+    device = a12.device
+    for name, (t, shape) in expected.items():
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor on {device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if nb > MAX_BETAS:
+        raise ValueError(f"at most {MAX_BETAS} betas are supported, got {nb}")
+
+
+_ARGTYPES = {
+    "smpl_verts_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "smpl_moments_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
+
+
+def _launcher(name: str):
+    lib = load_library("smpl_lbs")
+    fn = getattr(lib, name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, tensors, out, ints):
+    fn = _launcher(name)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    rc = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with CUDA error {rc}")
+
+
+def smpl_verts(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):
+    """K2: (B, 3, V) skinned vertices.  a12 (B, 24, 12), betas (B, NB),
+    pose_feature (B, 207)."""
+    args = (a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights)
+    if a12.device.type == "cpu":
+        return smpl_verts_plain(*args)
+    b = betas.shape[0]
+    _check((b,), *args)
+    v = v_template_cm.shape[1]
+    out = torch.empty((b, 3, v), dtype=torch.float32, device=a12.device)
+    _launch("smpl_verts_launch", args, out, (b, v, betas.shape[1]))
+    LAUNCHES["smpl_verts"] += 1
+    return out
+
+
+def smpl_moments(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):
+    """K1: (G, 2, 3, V) per-group (Σx, Σx²).  a12 (G, N, 24, 12), betas
+    (G, N, NB), pose_feature (G, N, 207)."""
+    args = (a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights)
+    if a12.device.type == "cpu":
+        return smpl_verts_moments_plain(*args)
+    g, n = betas.shape[:2]
+    if n == 0:
+        raise ValueError("smpl_moments needs at least one sample per group")
+    _check((g, n), *args)
+    v = v_template_cm.shape[1]
+    out = torch.empty((g, 2, 3, v), dtype=torch.float32, device=a12.device)
+    _launch("smpl_moments_launch", args, out, (g, n, v, betas.shape[2]))
+    LAUNCHES["smpl_moments"] += 1
+    return out

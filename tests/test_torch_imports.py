@@ -1,0 +1,94 @@
+"""Hygiene of the PyTorch port: it imports neither JAX nor the JAX package,
+and its entry points refuse to run on the CPU unless asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "humaniflow_tpu")
+
+
+def _port_sources():
+    root = os.path.join(REPO, "humaniflow_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(root):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_port_source_imports_no_jax(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'humaniflow_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import humaniflow_torch.pipelines, humaniflow_torch.utils.convert_jax\n"
+        "import humaniflow_torch.models.cuda_lbs, humaniflow_torch.utils.cuda_build\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _entry_points():
+    from humaniflow_torch.configs import get_humaniflow_cfg_defaults
+    from humaniflow_torch.models import HumaniflowModel, synthetic_smpl
+    from humaniflow_torch.pipelines import make_predict_fn, predict_humaniflow
+
+    cfg = get_humaniflow_cfg_defaults()
+    smpl = synthetic_smpl(num_verts=64, device="cpu")
+    model = HumaniflowModel(cfg.MODEL, device="cpu")
+    images = torch.zeros((1, 32, 32, 3)).numpy()
+    joints = torch.zeros((1, 17, 2)).numpy()
+    return {
+        "predict_humaniflow": lambda: predict_humaniflow(model, smpl, cfg, images, joints, num_samples=2),
+        "make_predict_fn": lambda: make_predict_fn(model, smpl, cfg),
+        "HumaniflowModel": lambda: HumaniflowModel(cfg.MODEL),
+        "synthetic_smpl": lambda: synthetic_smpl(num_verts=64),
+        "SMPLModel.to": lambda: smpl.to(),
+    }
+
+
+@pytest.mark.parametrize(
+    "name", ["predict_humaniflow", "make_predict_fn", "HumaniflowModel", "synthetic_smpl", "SMPLModel.to"]
+)
+def test_entry_points_default_to_cuda_and_raise_without_it(name):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the entry points run there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_points()[name]()
+
+
+def test_make_predict_fn_rejects_a_model_on_another_device():
+    from humaniflow_torch.configs import get_humaniflow_cfg_defaults
+    from humaniflow_torch.models import HumaniflowModel, synthetic_smpl
+    from humaniflow_torch.pipelines import make_predict_fn
+
+    cfg = get_humaniflow_cfg_defaults()
+    model = HumaniflowModel(cfg.MODEL, device="cpu")
+    smpl = synthetic_smpl(num_verts=64, device="cpu")
+    with pytest.raises(ValueError):
+        make_predict_fn(model, smpl, cfg, device="meta")
