@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure (exit code != 0):
 1. print the card's name and power limit; build the CUDA kernels with nvcc
-   (into build/torch_kernels/);
+   (into build/torch_kernels/, one nvcc per source, all at once);
 2. hold kernels K2 (smpl_verts) and K1 (smpl_moments) against their plain
    PyTorch twins at the main path's shapes and at ragged ones, and time both;
 3. drive the main path through predict_humaniflow at the full width of the
@@ -14,13 +14,23 @@ Phases, each of which raises on failure (exit code != 0):
    check its outputs against the CPU path on a small input;
 4. run the distribution-inference program (model → K1 moments → variance,
    plus the K2 point estimate) at B=32, N=100 and check its variance
-   against predict's vertex samples drawn with the same noise.
+   against predict's vertex samples drawn with the same noise;
+5. hold kernel K3 (coverage) against its plain twin, bit for bit, on posed
+   synthetic bodies and on hand-made ragged faces, at 256² and 200², with
+   and without back-face culling, and time it at the SSP-3D shape;
+6. run the SSP-3D protocol through evaluate_humaniflow (N=100, silhouette
+   and per-sample silhouette IOU, B=32, 256²), check the point-estimate
+   silhouettes of K3 against the exact scan, check GPU evaluation with
+   exact silhouettes against CPU evaluation on a small input, and time it
+   (img/s, and the split into eval step, silhouettes and metrics);
+7. run the 3DPW protocol (N=10, B=32) and time it.
 
-The kernel launch counters are zeroed just before phase 3 and read after
-phase 4.  Prints one {"kernels": [...]} line, then the card line as
-nvidia-smi gives it, and last {"ok": true, "device": {...}}.  Without CUDA,
-or without the humaniflow_torch package beside it, it exits non-zero and
-prints no result.
+Each path of phases 3, 4, 6 and 7 is driven with the kernel launch counters
+set to 0 just before it and read just after; launches made to compare a
+kernel with its twin, or to time it, are not counted.  Prints one
+{"kernels": [...]} line, then the card line as nvidia-smi gives it, and last
+{"ok": true, "device": {...}}.  Without CUDA, or without the humaniflow_torch
+package beside it, it exits non-zero and prints no result.
 """
 
 import json
@@ -36,6 +46,10 @@ MOMENTS_RTOL = 1e-5  # kernel vs plain twin, relative to each moment plane's max
 SLICE_ATOL = 5e-4  # GPU path vs CPU path, whole predict slice
 SAMPLE0_ATOL = 1e-5  # fused sample 0 vs separate point-estimate pass on the card
 VAR_RTOL, VAR_ATOL = 1e-3, 1e-6  # one-pass E[x²]−E[x]² cancellation in float32
+SEAM_PX = 8  # K3 (culled) vs the exact scan, per mesh: the DensePose seam hole
+METRIC_RTOL = 2e-4  # GPU vs CPU evaluation, final metrics
+IOU_ATOL = 2e-2  # the same for the IOU metrics: one pixel is ~1% of a 64² silhouette
+PROTOCOL_BATCHES = 6  # one warm-up batch, then five timed
 
 
 def _bound_ms(flops, nbytes):
@@ -157,6 +171,263 @@ def check_against_cpu(model, smpl, cfg):
         raise AssertionError(f"GPU and CPU predict disagree: {worst} > {SLICE_ATOL}")
 
 
+def _zero_counts():
+    from humaniflow_torch.models import cuda_lbs
+    from humaniflow_torch.render import cuda_coverage
+
+    for counts in (cuda_lbs.LAUNCHES, cuda_coverage.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _read_counts():
+    import torch
+
+    from humaniflow_torch.models import cuda_lbs
+    from humaniflow_torch.render import cuda_coverage
+
+    torch.cuda.synchronize()
+    return {**cuda_lbs.LAUNCHES, **cuda_coverage.LAUNCHES}
+
+
+def _posed_screen(renderer, smpl, b, seed):
+    """DensePose-vertex screen coordinates of b synthetic bodies under random
+    poses (axis-angle 0.25·N(0, 1)) and shapes, camera (0.9, 0, 0.2)."""
+    import torch
+
+    from humaniflow_torch.models import smpl_forward
+    from humaniflow_torch.ops import so3_exp
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    pose = so3_exp(0.25 * torch.randn((b, 23, 3), generator=g, device="cuda"))
+    shape = torch.randn((b, 10), generator=g, device="cuda")
+    with torch.inference_mode():
+        verts = smpl_forward(smpl, shape, pose, torch.eye(3, device="cuda").expand(b, 3, 3))["vertices"]
+        cam = torch.tensor([0.9, 0.0, 0.2], device="cuda").expand(b, 3)
+        return renderer._sil_screen(verts, cam)
+
+
+def _ragged_screen(img):
+    """Hand-made faces on two meshes: ordinary, zero-area, off screen,
+    crossing both borders, stretched across the image, with a NaN vertex;
+    each also with the opposite winding."""
+    import math
+
+    import torch
+
+    v = torch.tensor(
+        [[3.2, 4.1, 0], [17.9, 6.3, 0], [8.0, 21.7, 0],
+         [30.5, 30.5, 0], [40.5, 40.5, 0], [50.5, 50.5, 0],
+         [-90.0, -80.0, 0], [-60.0, -85.0, 0], [-70.0, -50.0, 0],
+         [-20.0, 100.0, 0], [img + 30.0, 110.0, 0], [img / 2, 150.0, 0],
+         [1.5, img - 2.5, 0], [img - 1.5, img - 2.0, 0], [img / 2, img - 1.0, 0],
+         [math.nan, 10.0, 0], [20.0, 10.0, 0], [15.0, 30.0, 0]],
+        device="cuda",
+    )
+    faces = torch.arange(18, dtype=torch.int32, device="cuda").reshape(6, 3)
+    return torch.stack([v, v + 0.37]).contiguous(), torch.cat([faces, faces.flip(1)]).contiguous()
+
+
+def _coverage_work(sv, faces, img, cull_sign):
+    """(edge tests, kept faces) that K3's contract needs for these inputs:
+    the pixels of the widened, clipped bounding box of every kept face."""
+    import torch
+
+    tests = kept = 0
+    fl = faces.long()
+    for m0 in range(0, sv.shape[0], 128):
+        tri = sv[m0 : m0 + 128][:, fl]  # (m, F, 3, 3)
+        x, y = tri[..., 0], tri[..., 1]
+        area = (x[..., 1] - x[..., 0]) * (y[..., 2] - y[..., 0]) - (x[..., 2] - x[..., 0]) * (y[..., 1] - y[..., 0])
+        keep = torch.isfinite(tri[..., :2]).all(-1).all(-1) & (area.abs() > 1e-9)
+        if cull_sign:
+            keep &= area * cull_sign > 0
+        span = lambda c: (torch.clamp(torch.ceil(c.amax(-1)) + 1, max=img - 1)  # noqa: E731
+                          - torch.clamp(torch.floor(c.amin(-1)) - 1, min=0) + 1).clamp(min=0).double()
+        tests += float(torch.where(keep, span(x) * span(y), 0.0).sum())
+        kept += int(keep.sum())
+    return tests, kept
+
+
+def check_coverage(smpl):
+    """Phase 5: K3 against its plain twin, bit for bit; returns its record."""
+    import torch
+
+    from humaniflow_torch.render import TexturedIUVRenderer, cuda_coverage
+    from humaniflow_torch.utils.profiling import cuda_ms
+
+    for img in (IMG, 200):
+        renderer = TexturedIUVRenderer(img_wh=img, render_rgb=False)
+        cases = (("posed x16", _posed_screen(renderer, smpl, 16, 3), renderer.dp["faces"]),
+                 ("ragged", *_ragged_screen(img)))
+        for cull in (0, 1):
+            for name, sv, faces in cases:
+                mask, overflow = cuda_coverage.coverage(sv, faces, img, cull_sign=cull)
+                torch.cuda.synchronize()
+                want, want_overflow = cuda_coverage.coverage_plain(sv, faces, img, cull_sign=cull)
+                diff = int((mask != want).sum())
+                print(f"K3 coverage {name} {img}² cull_sign={cull}: {diff} differing px of "
+                      f"{int(want.sum())} covered, overflow {int(overflow.sum())}")
+                if diff or int(overflow.abs().sum()) or int(want_overflow.abs().sum()):
+                    raise AssertionError(f"K3 disagrees with its plain twin ({name}, {img}², cull {cull})")
+
+    # time at the SSP-3D shape: B·(N+1) meshes at 256², culled
+    renderer = TexturedIUVRenderer(img_wh=IMG, render_rgb=False)
+    m = B * (N + 1)
+    sv, faces = _posed_screen(renderer, smpl, m, 4), renderer.dp["faces"]
+    mask, overflow = cuda_coverage.coverage(sv, faces, IMG, cull_sign=1)
+    want, _ = cuda_coverage.coverage_plain(sv[:32], faces, IMG, cull_sign=1)
+    diff = int((mask[:32] != want).sum())
+    print(f"K3 coverage at M={m}, {IMG}²: {diff} differing px on the first 32 meshes, overflow {int(overflow.sum())}")
+    if diff or int(overflow.abs().sum()):
+        raise AssertionError("K3 disagrees with its plain twin at the SSP-3D shape")
+    tests, kept = _coverage_work(sv, faces, IMG, 1)
+    # per test: a0·x, + b0·y, + c0 and the same for w1, then w2 = 1 − w0 − w1
+    # (8 operations); per kept face ~25 for the area and the six coefficients
+    flops = 8 * tests + 25 * kept
+    nbytes = 4 * sv.numel() + 4 * faces.numel() + m * IMG * IMG + 4 * m
+    bound, by = _bound_ms(flops, nbytes)
+    print(f"K3 work at M={m}: {tests:.4e} edge tests over {kept} kept faces, {nbytes / 1e9:.3f} GB")
+    return dict(
+        name="coverage", replaces="humaniflow_tpu/render/binned_rasterizer.py:688", max_abs_err=float(diff),
+        ms=cuda_ms(lambda: cuda_coverage.coverage(sv, faces, IMG, cull_sign=1), 20),
+        plain_ms=cuda_ms(lambda: cuda_coverage.coverage_plain(sv[:32], faces, IMG, cull_sign=1), 5),
+        bound_ms=bound, bound_by=by, ms_meshes=m, plain_ms_meshes=32,
+    )
+
+
+def _counting_renderer(**kw):
+    """A TexturedIUVRenderer that also sums the overflow counts it returns
+    (a device tensor, read after the run)."""
+    from humaniflow_torch.render import TexturedIUVRenderer
+
+    class CountingRenderer(TexturedIUVRenderer):
+        overflow_total = 0
+
+        def render_silhouette_with_overflow(self, vertices, cam_wp):
+            mask, overflow = super().render_silhouette_with_overflow(vertices, cam_wp)
+            self.overflow_total = self.overflow_total + overflow.sum()
+            return mask, overflow
+
+    return CountingRenderer(**kw)
+
+
+def run_protocol(model, smpls, cfg, metrics, n_samples, renderer=None):
+    """Drive evaluate_humaniflow over PROTOCOL_BATCHES batches of B images
+    with the whole dataset staged on the card; returns (final metrics,
+    launches, img/s over the batches after the first)."""
+    import math
+
+    import torch
+
+    from humaniflow_torch.pipelines import evaluate_humaniflow
+    from humaniflow_torch.utils.profiling import SyntheticEvalDataset
+
+    ds = SyntheticEvalDataset(PROTOCOL_BATCHES * B, IMG)
+    times = []
+    _zero_counts()
+    final = evaluate_humaniflow(
+        model, *smpls, cfg, ds, metrics, batch_size=B, num_pred_samples=n_samples, renderer=renderer,
+        generator=torch.Generator("cuda").manual_seed(11), batch_times=times, pre_stage=True,
+    )
+    launches = _read_counts()
+    for m, v in final.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"{m} is not finite: {v}")
+    return final, launches, B * (len(times) - 1) / sum(times[1:])
+
+
+def ssp3d_split(model, smpls, cfg, renderer):
+    """Point-estimate silhouettes of K3 against the exact scan, and the
+    per-batch split of the SSP-3D protocol (CUDA events, 5 batches after a
+    warm-up, on one staged batch)."""
+    import torch
+
+    from humaniflow_torch.metrics import EvalMetricsTracker
+    from humaniflow_torch.pipelines import EVAL_METRICS_SSP3D
+    from humaniflow_torch.pipelines.evaluate import _build_eval_step, _render_sample_silhouettes
+    from humaniflow_torch.utils.profiling import SyntheticEvalDataset, cuda_ms, staged_batch
+
+    batch = staged_batch(SyntheticEvalDataset(B, IMG), B, "cuda")
+    eval_step = _build_eval_step(model, *smpls, cfg, N, True, True)
+    gen = torch.Generator("cuda")
+    pred, target, proxy, extra = eval_step(batch, generator=gen.manual_seed(13))
+    with torch.inference_mode():
+        sil_k3, overflow = renderer.render_silhouette_with_overflow(extra["verts_flipped_point_est"], extra["cam_wp"])
+        sil_exact = renderer.render_silhouette(extra["verts_flipped_point_est"], extra["cam_wp"])
+    per_mesh = (sil_k3 != sil_exact).reshape(B, -1).sum(1)
+    print(f"point-estimate silhouettes, K3 (culled) vs exact scan: differing px per mesh max {int(per_mesh.max())}, "
+          f"total {int(per_mesh.sum())} of {int(sil_exact.sum())} covered; overflow {int(overflow.sum())}")
+    if int(per_mesh.max()) > SEAM_PX or int(overflow.abs().sum()):
+        raise AssertionError("K3 point-estimate silhouettes stray from the exact scan")
+
+    def silhouettes():
+        with torch.inference_mode():
+            sil, _ = renderer.render_silhouette_with_overflow(extra["verts_flipped_point_est"], extra["cam_wp"])
+            samples, _ = _render_sample_silhouettes(renderer, pred["verts3D_samples"], extra["cam_wp"])
+        return sil, samples
+
+    pred["silhouettes"], pred["silhouettessamples"] = silhouettes()
+    target.update(joints2D=batch["joints2D"], joints2D_vis=batch["joints2D_visib"], silhouettes=batch["silhouette"])
+    tracker = EvalMetricsTracker(EVAL_METRICS_SSP3D, num_samples_for_prob_metrics=N, sync_every=1 << 20)
+
+    def metrics():
+        with torch.inference_mode():
+            tracker.update_per_batch(pred, target, B, model_input=proxy)
+
+    return {
+        "eval_step_ms": cuda_ms(lambda: eval_step(batch, generator=gen.manual_seed(13)), 5),
+        "silhouettes_ms": cuda_ms(silhouettes, 5),
+        "metrics_ms": cuda_ms(metrics, 5),
+    }
+
+
+def check_eval_against_cpu(model, smpls, cfg):
+    """GPU evaluation with exact silhouettes against CPU evaluation: same
+    weights, same noise, B=2, N=3, 64², two batches."""
+    import dataclasses
+
+    import torch
+
+    from humaniflow_torch.models import HumaniflowModel
+    from humaniflow_torch.pipelines import EVAL_METRICS_SSP3D, evaluate_humaniflow
+    from humaniflow_torch.pipelines.evaluate import _build_eval_step, _render_sample_silhouettes
+    from humaniflow_torch.render import TexturedIUVRenderer
+    from humaniflow_torch.utils.profiling import SyntheticEvalDataset, staged_batch
+
+    b, n, img = 2, 3, 64
+    cfg64 = dataclasses.replace(cfg, DATA=dataclasses.replace(cfg.DATA, PROXY_REP_SIZE=img))
+    cpu_model = HumaniflowModel(cfg.MODEL, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_smpls = [s.to("cpu") for s in smpls]
+    g = torch.Generator().manual_seed(12)
+    noise = [(torch.randn((b, n, 10), generator=g), [torch.randn((b, n, len(p), 3), generator=g) for p in model.levels])
+             for _ in range(2)]
+    ds = SyntheticEvalDataset(2 * b, img=img)
+    finals, sils = {}, {}
+    for dev, mdl, sm in (("cuda", model, smpls), ("cpu", cpu_model, cpu_smpls)):
+        renderer = TexturedIUVRenderer(img_wh=img, render_rgb=False, silhouette_exact=True, device=dev)
+        finals[dev] = evaluate_humaniflow(mdl, *sm, cfg64, ds, EVAL_METRICS_SSP3D, batch_size=b, num_pred_samples=n,
+                                          renderer=renderer, noise_fn=lambda i, bb, nn: noise[i], device=dev)
+        batch = staged_batch(ds, b, dev)
+        step = _build_eval_step(mdl, *sm, cfg64, n, True, True)
+        pred, _, _, extra = step(batch, noise=tuple([noise[0][0].to(dev), [z.to(dev) for z in noise[0][1]]]))
+        with torch.inference_mode():
+            pe = renderer.render_silhouette(extra["verts_flipped_point_est"], extra["cam_wp"]).bool()
+            samples, _ = _render_sample_silhouettes(renderer, pred["verts3D_samples"], extra["cam_wp"])
+        sils[dev] = (pe.cpu(), samples.cpu())
+    diff_pe = int((sils["cuda"][0] != sils["cpu"][0]).sum())
+    diff_s = int((sils["cuda"][1] != sils["cpu"][1]).sum())
+    print(f"evaluate on GPU (exact silhouettes) vs CPU, B={b} N={n} {img}²: silhouettes of the first batch differ in "
+          f"{diff_pe} px (point estimates) and {diff_s} px (samples) of {int(sils['cpu'][1].sum())} covered")
+    for m in EVAL_METRICS_SSP3D:
+        got, want = finals["cuda"][m], finals["cpu"][m]
+        ok = abs(got - want) <= (IOU_ATOL if "IOU" in m else METRIC_RTOL * abs(want))
+        print(f"  {m}: GPU {got:.6g} CPU {want:.6g}")
+        if not ok:
+            raise AssertionError(f"GPU and CPU evaluation disagree on {m}: {got} vs {want}")
+
+
 def main() -> int:
     import torch
 
@@ -168,8 +439,8 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; the port needs them off")
     from humaniflow_torch.configs import get_humaniflow_cfg_defaults
-    from humaniflow_torch.models import HumaniflowModel, cuda_lbs, smpl_forward, smpl_vertex_moments, synthetic_smpl
-    from humaniflow_torch.pipelines import predict_humaniflow
+    from humaniflow_torch.models import HumaniflowModel, smpl_forward, smpl_vertex_moments, synthetic_smpl
+    from humaniflow_torch.pipelines import EVAL_METRICS_3DPW, EVAL_METRICS_SSP3D, predict_humaniflow
     from humaniflow_torch.utils.cuda_build import build_all
     from humaniflow_torch.utils.profiling import cuda_ms, wall_ms
 
@@ -199,12 +470,11 @@ def main() -> int:
 
     # ---- phase 3: predict_humaniflow at B=32, N=100 (the main path)
     images, joints2d, conf = _inputs(B)
-    for k in cuda_lbs.LAUNCHES:
-        cuda_lbs.LAUNCHES[k] = 0
+    _zero_counts()
     pred = predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
                               generator=torch.Generator("cuda").manual_seed(7))
-    torch.cuda.synchronize()
-    if cuda_lbs.LAUNCHES["smpl_verts"] == 0:
+    path_launches = {"predict": _read_counts()}
+    if path_launches["predict"]["smpl_verts"] == 0:
         raise AssertionError("predict_humaniflow did not launch K2")
     shapes = {
         "verts_point_est": (B, V, 3), "tpose_verts": (B, V, 3), "verts_samples": (B, N, V, 3),
@@ -250,10 +520,10 @@ def main() -> int:
         out = model_forward(torch.Generator("cuda").manual_seed(seed))
         return point_estimate(out), moments(out)
 
+    _zero_counts()
     verts_pe, vertex_var = distribution_inference(7)
-    torch.cuda.synchronize()
-    launches = dict(cuda_lbs.LAUNCHES)
-    if launches["smpl_moments"] == 0:
+    path_launches["distribution inference"] = _read_counts()
+    if path_launches["distribution inference"]["smpl_moments"] == 0:
         raise AssertionError("the distribution-inference program did not launch K1")
     want_var = (pred["vertex_uncertainty_directional"] ** 2).sum(-1)
     var_err = float((vertex_var - want_var).abs().max())
@@ -261,7 +531,6 @@ def main() -> int:
           f"(variance up to {float(want_var.max()):.3e})")
     torch.testing.assert_close(vertex_var, want_var, rtol=VAR_RTOL, atol=VAR_ATOL)
     torch.testing.assert_close(verts_pe, pred["verts_point_est"], rtol=0, atol=VERTS_ATOL)
-    print(f"main-path launches: {launches}")
 
     # ---- timing, after the counted run
     gen = torch.Generator("cuda")
@@ -276,13 +545,44 @@ def main() -> int:
     print(f"distribution inference B={B} N={N}: {program_ms:.2f} ms/batch, {B / program_ms * 1e3:.1f} img/s "
           f"(model forward {forward_ms:.2f} ms, moments {moments_ms:.2f} ms, point-estimate SMPL {pe_ms:.2f} ms)")
 
+    # ---- phase 5: K3 against its plain twin
+    records["coverage"] = check_coverage(smpl)
+
+    # ---- phase 6: the SSP-3D protocol, B=32, N=100, 256²
+    smpls = (smpl, synthetic_smpl(num_verts=V, seed=1), synthetic_smpl(num_verts=V, seed=2))
+    renderer = _counting_renderer(img_wh=IMG, render_rgb=False)
+    final, path_launches["SSP-3D"], ssp3d_img_s = run_protocol(model, smpls, cfg, EVAL_METRICS_SSP3D, N, renderer)
+    overflow = int(renderer.overflow_total)
+    print(f"SSP-3D launches: {path_launches['SSP-3D']}, silhouette overflow {overflow}")
+    if path_launches["SSP-3D"]["coverage"] == 0 or path_launches["SSP-3D"]["smpl_verts"] == 0:
+        raise AssertionError("the SSP-3D protocol did not launch K3 and K2")
+    if overflow != 0:
+        raise AssertionError(f"K3 reported overflow {overflow}")
+    for m in ("silhouette-IOU", "silhouettesamples-IOU"):
+        if not 0.0 <= final[m] <= 1.0:
+            raise AssertionError(f"{m} = {final[m]} lies outside [0, 1]")
+    split = ssp3d_split(model, smpls, cfg, renderer)
+    check_eval_against_cpu(model, smpls, cfg)
+    print(f"SSP-3D protocol B={B} N={N} {IMG}²: {ssp3d_img_s:.2f} img/s over {PROTOCOL_BATCHES - 1} batches after a "
+          f"warm-up; per batch eval step {split['eval_step_ms']:.2f} ms, silhouettes {split['silhouettes_ms']:.2f} ms, "
+          f"metrics {split['metrics_ms']:.2f} ms")
+
+    # ---- phase 7: the 3DPW protocol, B=32, N=10
+    _, path_launches["3DPW"], pw3d_img_s = run_protocol(model, smpls, cfg, EVAL_METRICS_3DPW, 10)
+    if path_launches["3DPW"]["smpl_verts"] == 0:
+        raise AssertionError("the 3DPW protocol did not launch K2")
+    print(f"3DPW protocol B={B} N=10: {pw3d_img_s:.2f} img/s over {PROTOCOL_BATCHES - 1} batches after a warm-up")
+    print(f"launches by path: {path_launches}")
+
     kernels = []
-    for name in ("smpl_verts", "smpl_moments"):
-        rec = records[name]
+    sources = {"smpl_verts": "smpl_lbs.cu", "smpl_moments": "smpl_lbs.cu", "coverage": "coverage.cu"}
+    for name, source in sources.items():
+        rec = dict(records[name])
+        extra = {k: rec.pop(k) for k in ("ms_meshes", "plain_ms_meshes") if k in rec}
         kernels.append(dict(
-            name=name, route="cuda", source="humaniflow_torch/csrc/smpl_lbs.cu", replaces=rec["replaces"],
-            launches=launches[name], max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
-            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None,
+            name=name, route="cuda", source=f"humaniflow_torch/csrc/{source}", replaces=rec["replaces"],
+            launches=sum(c[name] for c in path_launches.values()), max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None, **extra,
         ))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,6 @@
-from .rotation import batch_rodrigues, rot6d_to_rotmat, rotmat_to_rot6d
+from .alignment import procrustes_analysis_batch, scale_and_translation_transform_batch
+from .camera import orthographic_project
+from .rotation import aa_rotate_rotmats, batch_rodrigues, rot6d_to_rotmat, rotmat_to_rot6d
 from .so3 import (
     sinc,
     so3_exp,
@@ -10,9 +12,13 @@ from .so3 import (
 )
 
 __all__ = [
+    "aa_rotate_rotmats",
     "batch_rodrigues",
+    "orthographic_project",
+    "procrustes_analysis_batch",
     "rot6d_to_rotmat",
     "rotmat_to_rot6d",
+    "scale_and_translation_transform_batch",
     "sinc",
     "so3_exp",
     "so3_hat",

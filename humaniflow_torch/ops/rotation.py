@@ -1,12 +1,12 @@
 """Rotation-representation conversions (6D, axis-angle, matrix).
 
 The PyTorch counterpart of the parts of `humaniflow_tpu/ops/rotation.py`
-that distribution inference uses.
+that distribution inference and evaluation use.
 """
 
 import torch
 
-from .so3 import so3_exp
+from .so3 import so3_exp, so3_log
 
 
 def rot6d_to_rotmat(x: torch.Tensor) -> torch.Tensor:
@@ -37,3 +37,24 @@ def rotmat_to_rot6d(r: torch.Tensor, stack_columns: bool = False) -> torch.Tenso
 def batch_rodrigues(axisangle: torch.Tensor) -> torch.Tensor:
     """Axis-angle vectors → rotation matrices."""
     return so3_exp(axisangle)
+
+
+def aa_rotate_rotmats(rotmats: torch.Tensor, axes, angles, rot_mult_order: str = "post"):
+    """Rotate a batch of rotation matrices about axis-angle rotations.
+
+    :param rotmats: (B, 3, 3)
+    :param axes: (B, 3) or (3,)
+    :param angles: (B, 1) or scalar, radians
+    :param rot_mult_order: "post" (rotmats @ R) or "pre" (R @ rotmats)
+    :return: (rotated axis-angle (B, 3), rotated rotmats (B, 3, 3))
+    """
+    if rot_mult_order not in ("pre", "post"):
+        raise ValueError(f"rot_mult_order must be 'pre' or 'post', got {rot_mult_order!r}")
+    r = torch.as_tensor(axes, dtype=rotmats.dtype, device=rotmats.device) * torch.as_tensor(
+        angles, dtype=rotmats.dtype, device=rotmats.device
+    )
+    if r.dim() < 2:
+        r = r[None, :].expand(rotmats.shape[0], 3)
+    rot = so3_exp(r)
+    out = torch.matmul(rotmats, rot) if rot_mult_order == "post" else torch.matmul(rot, rotmats)
+    return so3_log(out), out

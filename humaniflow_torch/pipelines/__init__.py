@@ -1,12 +1,17 @@
+from .evaluate import evaluate_humaniflow
 from .predict import (
     build_proxy_representation,
     make_predict_fn,
     predict_humaniflow,
     save_pred_output,
 )
+from .protocols import EVAL_METRICS_3DPW, EVAL_METRICS_SSP3D
 
 __all__ = [
+    "EVAL_METRICS_3DPW",
+    "EVAL_METRICS_SSP3D",
     "build_proxy_representation",
+    "evaluate_humaniflow",
     "make_predict_fn",
     "predict_humaniflow",
     "save_pred_output",

@@ -46,6 +46,7 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[m] = None\n"
         "import humaniflow_torch.pipelines, humaniflow_torch.utils.convert_jax\n"
         "import humaniflow_torch.models.cuda_lbs, humaniflow_torch.utils.cuda_build\n"
+        "import humaniflow_torch.render.cuda_coverage, humaniflow_torch.pipelines.evaluate\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -56,7 +57,8 @@ def test_port_imports_with_jax_blocked():
 def _entry_points():
     from humaniflow_torch.configs import get_humaniflow_cfg_defaults
     from humaniflow_torch.models import HumaniflowModel, synthetic_smpl
-    from humaniflow_torch.pipelines import make_predict_fn, predict_humaniflow
+    from humaniflow_torch.pipelines import EVAL_METRICS_3DPW, evaluate_humaniflow, make_predict_fn, predict_humaniflow
+    from humaniflow_torch.render import TexturedIUVRenderer
 
     cfg = get_humaniflow_cfg_defaults()
     smpl = synthetic_smpl(num_verts=64, device="cpu")
@@ -69,11 +71,17 @@ def _entry_points():
         "HumaniflowModel": lambda: HumaniflowModel(cfg.MODEL),
         "synthetic_smpl": lambda: synthetic_smpl(num_verts=64),
         "SMPLModel.to": lambda: smpl.to(),
+        "evaluate_humaniflow": lambda: evaluate_humaniflow(model, smpl, smpl, smpl, cfg, [], EVAL_METRICS_3DPW),
+        "TexturedIUVRenderer": lambda: TexturedIUVRenderer(img_wh=32),
     }
 
 
 @pytest.mark.parametrize(
-    "name", ["predict_humaniflow", "make_predict_fn", "HumaniflowModel", "synthetic_smpl", "SMPLModel.to"]
+    "name",
+    [
+        "predict_humaniflow", "make_predict_fn", "HumaniflowModel", "synthetic_smpl", "SMPLModel.to",
+        "evaluate_humaniflow", "TexturedIUVRenderer",
+    ],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
@@ -92,3 +100,15 @@ def test_make_predict_fn_rejects_a_model_on_another_device():
     smpl = synthetic_smpl(num_verts=64, device="cpu")
     with pytest.raises(ValueError):
         make_predict_fn(model, smpl, cfg, device="meta")
+
+
+def test_evaluate_humaniflow_rejects_a_model_on_another_device():
+    from humaniflow_torch.configs import get_humaniflow_cfg_defaults
+    from humaniflow_torch.models import HumaniflowModel, synthetic_smpl
+    from humaniflow_torch.pipelines import EVAL_METRICS_3DPW, evaluate_humaniflow
+
+    cfg = get_humaniflow_cfg_defaults()
+    model = HumaniflowModel(cfg.MODEL, device="cpu")
+    smpl = synthetic_smpl(num_verts=64, device="cpu")
+    with pytest.raises(ValueError):
+        evaluate_humaniflow(model, smpl, smpl, smpl, cfg, [], EVAL_METRICS_3DPW, device="meta")

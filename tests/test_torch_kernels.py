@@ -1,5 +1,6 @@
-"""Kernels K1 (smpl_moments) and K2 (smpl_verts) of csrc/smpl_lbs.cu against
-their plain PyTorch twins, on an NVIDIA GPU.
+"""Kernels K1 (smpl_moments) and K2 (smpl_verts) of csrc/smpl_lbs.cu and K3
+(coverage) of csrc/coverage.cu against their plain PyTorch twins, on an
+NVIDIA GPU.
 
 Every test here is marked `cuda` and skips without a card.  The file imports
 nothing of JAX, so that it also runs where JAX is not installed:
@@ -7,13 +8,17 @@ nothing of JAX, so that it also runs where JAX is not installed:
     python -m pytest tests/test_torch_kernels.py -q --noconftest
 """
 
+import math
+
 import pytest
 import torch
 
 from humaniflow_torch.models import cuda_lbs
+from humaniflow_torch.render import cuda_coverage
 
 # Kernel against plain twin: 2e-5 m for vertices (float32 sums in another
-# order); moments 1e-5 relative to each moment plane's largest value.
+# order); moments 1e-5 relative to each moment plane's largest value; K3's
+# masks bit for bit (the same rounded operations in the same order).
 VERT_ATOL = 2e-5
 MOM_RTOL = 1e-5
 
@@ -77,3 +82,70 @@ def test_kernel_wrappers_reject_bad_inputs():
             cuda_lbs.smpl_verts(*broken)
     with pytest.raises(ValueError):
         cuda_lbs.smpl_verts(args[0][:, :23], *args[1:])
+
+
+def _posed_screen(img, b=6, seed=0):
+    """DensePose-vertex screen coordinates of b posed synthetic bodies."""
+    from humaniflow_torch.models import smpl_forward, synthetic_smpl
+    from humaniflow_torch.ops import so3_exp
+    from humaniflow_torch.render import TexturedIUVRenderer
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    smpl = synthetic_smpl(num_verts=6890)
+    pose = so3_exp(0.25 * torch.randn((b, 23, 3), generator=g, device="cuda"))
+    shape = torch.randn((b, 10), generator=g, device="cuda")
+    verts = smpl_forward(smpl, shape, pose, torch.eye(3, device="cuda").expand(b, 3, 3))["vertices"]
+    cam = torch.tensor([0.9, 0.0, 0.2], device="cuda").expand(b, 3).clone()
+    renderer = TexturedIUVRenderer(img_wh=img, render_rgb=False)
+    return renderer._sil_screen(verts, cam).contiguous(), renderer.dp["faces"]
+
+
+def _ragged_screen(img):
+    """Hand-made faces: ordinary, zero-area, off screen, crossing the border,
+    stretched, with a NaN vertex and with an index out of range."""
+    v = torch.tensor(
+        [[3.2, 4.1, 0], [17.9, 6.3, 0], [8.0, 21.7, 0],  # ordinary
+         [30.5, 30.5, 0], [40.5, 40.5, 0], [50.5, 50.5, 0],  # collinear: zero area
+         [-90.0, -80.0, 0], [-60.0, -85.0, 0], [-70.0, -50.0, 0],  # off screen
+         [-20.0, 100.0, 0], [img + 30.0, 110.0, 0], [img / 2, 150.0, 0],  # crosses both borders
+         [1.5, img - 2.5, 0], [img - 1.5, img - 2.0, 0], [img / 2, img - 1.0, 0],  # stretched
+         [math.nan, 10.0, 0], [20.0, 10.0, 0], [15.0, 30.0, 0]],  # NaN vertex
+        device="cuda",
+    )
+    faces = torch.arange(18, dtype=torch.int32, device="cuda").reshape(6, 3)
+    faces = torch.cat([faces, faces.flip(1), torch.tensor([[0, 1, 99]], dtype=torch.int32, device="cuda")])
+    return torch.stack([v, v + 0.37]).contiguous(), faces.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img", [256, 200])
+@pytest.mark.parametrize("cull_sign", [0, 1])
+def test_coverage_kernel_matches_plain_bit_for_bit(img, cull_sign):
+    _require_cuda()
+    for sv, faces in (_posed_screen(img), _ragged_screen(img)):
+        before = cuda_coverage.LAUNCHES["coverage"]
+        mask, overflow = cuda_coverage.coverage(sv, faces, img, cull_sign=cull_sign)
+        torch.cuda.synchronize()
+        assert cuda_coverage.LAUNCHES["coverage"] == before + 1
+        want_mask, want_overflow = cuda_coverage.coverage_plain(sv, faces, img, cull_sign=cull_sign)
+        assert mask.dtype == torch.bool and mask.shape == want_mask.shape
+        assert int((mask != want_mask).sum()) == 0
+        assert torch.equal(overflow, want_overflow)
+        assert bool(mask.any())
+    assert overflow.tolist() == [1, 1]  # the ragged set's out-of-range face
+
+
+@pytest.mark.cuda
+def test_coverage_wrapper_rejects_bad_inputs():
+    _require_cuda()
+    sv, faces = _ragged_screen(64)
+    bad = [
+        (sv.double(), faces), (sv, faces.long()), (sv, faces.cpu()),
+        (sv.transpose(0, 1).contiguous().transpose(0, 1), faces), (sv[..., :2].contiguous(), faces),
+        (sv, faces[:, :2].contiguous()),
+    ]
+    for args in bad:
+        with pytest.raises((TypeError, ValueError)):
+            cuda_coverage.coverage(*args, 64)
+    with pytest.raises(ValueError):
+        cuda_coverage.coverage(sv, faces, 64, cull_sign=2)
