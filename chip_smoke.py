@@ -23,9 +23,23 @@ Phases, each of which raises on failure (exit code != 0):
    silhouettes of K3 against the exact scan, check GPU evaluation with
    exact silhouettes against CPU evaluation on a small input, and time it
    (img/s, and the split into eval step, silhouettes and metrics);
-7. run the 3DPW protocol (N=10, B=32) and time it.
+7. run the 3DPW protocol (N=10, B=32) and time it;
+8. hold kernel K5 (flow_level) against its plain twin on each of the 8
+   depth levels, with the contexts of the model's own autoregressive pass on
+   phase 3's proxies (B·(N+1) = 3,232 rows) and on ragged row counts, for
+   z ~ 0.6·N(0, 1), z = 0 and z = ±10, and time it per level;
+9. drive predict_humaniflow and the distribution-inference program again
+   with HFT_FUSED_LEVEL=1 (the fused-flow-level configuration: K5 once per
+   level) and hold them against phases 3-4's outputs for the same noise;
+10. drive uncropped-image predict at full width: 32 synthetic images of two
+   sizes → predict_hrnet_batch (HRNet-W48 at 384×288, seeded random weights,
+   keypoint-box fallback) → the 256² crop → predict_humaniflow with the
+   fused level, N=100, with float32 and with bf16 HRNet convolutions; check
+   GPU HRNet heatmaps and keypoints against the CPU on 2 images, and time it
+   (img/s, and the split into HRNet, crops and predict).
 
-Each path of phases 3, 4, 6 and 7 is driven with the kernel launch counters
+Phases 1-7 run with the fused level off.  Each path of phases 3, 4, 6, 7, 9
+and 10 is driven with the kernel launch counters
 set to 0 just before it and read just after; launches made to compare a
 kernel with its twin, or to time it, are not counted.  Prints one
 {"kernels": [...]} line, then the card line as nvidia-smi gives it, and last
@@ -34,6 +48,7 @@ package beside it, it exits non-zero and prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -50,6 +65,13 @@ SEAM_PX = 8  # K3 (culled) vs the exact scan, per mesh: the DensePose seam hole
 METRIC_RTOL = 2e-4  # GPU vs CPU evaluation, final metrics
 IOU_ATOL = 2e-2  # the same for the IOU metrics: one pixel is ~1% of a 64² silhouette
 PROTOCOL_BATCHES = 6  # one warm-up batch, then five timed
+LEVEL_ATOL = 2e-5  # K5 vs plain twin (the JAX package's Mosaic-vs-XLA bound for the fused level)
+FUSED_ROT_ATOL = 2e-4  # fused vs eager flow, rotations (the JAX fused-vs-XLA bound)
+FUSED_VAR_RTOL = 1e-2  # fused vs eager variance: sample vertices move by ≤ 5e-4 m of ~0.1 m spreads
+HEATMAP_RTOL = 1e-4  # GPU vs CPU HRNet heatmaps, relative to the largest |heatmap|
+SPLINE_OPS = 190  # arithmetic of one spline evaluation, counted from csrc/flow_level.cu
+RADIAL_OPS = 12  # the radial tanh per row
+UNCROPPED_SIZES = ((480, 640), (720, 540))  # (H, W) of the synthetic uncropped images
 
 
 def _bound_ms(flops, nbytes):
@@ -172,10 +194,11 @@ def check_against_cpu(model, smpl, cfg):
 
 
 def _zero_counts():
+    from humaniflow_torch.flows import cuda_level
     from humaniflow_torch.models import cuda_lbs
     from humaniflow_torch.render import cuda_coverage
 
-    for counts in (cuda_lbs.LAUNCHES, cuda_coverage.LAUNCHES):
+    for counts in (cuda_lbs.LAUNCHES, cuda_coverage.LAUNCHES, cuda_level.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -183,11 +206,12 @@ def _zero_counts():
 def _read_counts():
     import torch
 
+    from humaniflow_torch.flows import cuda_level
     from humaniflow_torch.models import cuda_lbs
     from humaniflow_torch.render import cuda_coverage
 
     torch.cuda.synchronize()
-    return {**cuda_lbs.LAUNCHES, **cuda_coverage.LAUNCHES}
+    return {**cuda_lbs.LAUNCHES, **cuda_coverage.LAUNCHES, **cuda_level.LAUNCHES}
 
 
 def _posed_screen(renderer, smpl, b, seed):
@@ -428,7 +452,254 @@ def check_eval_against_cpu(model, smpls, cfg):
             raise AssertionError(f"GPU and CPU evaluation disagree on {m}: {got} vs {want}")
 
 
+def _level_inputs(model, proxy, seed):
+    """(parts, z, ctx) of each depth level of one eager (B, N+1) pass of the
+    model on `proxy`, captured by a forward hook on the flow."""
+    import torch
+
+    captured = []
+    handle = model.flow.register_forward_hook(lambda m, args, out: captured.append(args))
+    try:
+        with torch.inference_mode():
+            model.apply(proxy, generator=torch.Generator("cuda").manual_seed(seed), num_samples=N,
+                        use_shape_mode_for_samples=True)
+    finally:
+        handle.remove()
+    if len(captured) != len(model.levels):
+        raise AssertionError(f"captured {len(captured)} flow calls, expected {len(model.levels)}")
+    return [(parts, z.reshape(-1, *z.shape[-2:]), ctx.reshape(-1, *ctx.shape[-2:]).contiguous())
+            for z, ctx, parts in captured]
+
+
+def _level_work(flow, rows, p, c_dim):
+    """(operations, bytes) that one K5 launch needs for `rows` rows of p
+    parts: per (row, part) and coupling, 2·in·out per dense layer, 2·out for
+    bias and ReLU, two splines; then the radial tanh.  Bytes: z, ctx and x
+    once, the p parts' weights once, the part indices."""
+    from humaniflow_torch.flows.cuda_level import _plan
+
+    blocks, _ = _plan(flow)
+    ops = weights = 0
+    for _, coupling in blocks:
+        for w in coupling.hypernet.weights:
+            out, inp = w.shape[1:]
+            ops += 2 * inp * out + 2 * out
+            weights += out * inp + out
+        ops += 2 * SPLINE_OPS
+    ops += RADIAL_OPS
+    return rows * p * ops, 4 * (rows * p * (3 + c_dim + 3) + p * weights) + 8 * p
+
+
+def check_flow_level(model, proxy):
+    """Phase 8: K5 against its plain twin on every depth level at the main
+    path's shape and at ragged row counts, and the twin's and the wrapper
+    call's times; returns K5's record and the inputs to time it on."""
+    import torch
+
+    from humaniflow_torch.flows import cuda_level
+    from humaniflow_torch.utils.profiling import cuda_ms
+
+    flow = model.flow
+    levels = _level_inputs(model, proxy, seed=21)
+    g = torch.Generator("cuda").manual_seed(22)
+    worst = 0.0
+    call_ms, plain_ms, bounds, timing, flops_total, bytes_total = [], [], [], [], 0, 0
+    with torch.inference_mode():
+        for li, (parts, z_model, ctx) in enumerate(levels):
+            rows, p, c_dim = ctx.shape
+            normal = 0.6 * torch.randn((rows, p, 3), generator=g, device="cuda")
+            tails = torch.full((rows, p, 3), 10.0, device="cuda")
+            tails[rows // 2:] = -10.0
+            cases = {"model noise": (z_model, ctx), "0.6·N(0,1)": (normal, ctx),
+                     "z=0": (torch.zeros_like(normal), ctx), "z=±10": (tails, ctx)}
+            for r in (1, 33, rows + 7):
+                idx = torch.arange(r, device="cuda") % rows
+                cases[f"rows={r}"] = (normal[idx].contiguous(), ctx[idx].contiguous())
+            errs = []
+            for name, (z, c) in cases.items():
+                got = cuda_level.flow_forward_level(flow, z, c, parts)
+                torch.cuda.synchronize()
+                err = float((got - cuda_level.flow_forward_level_plain(flow, z, c, parts)).abs().max())
+                errs.append(err)
+                if not err <= LEVEL_ATOL:
+                    raise AssertionError(f"K5 disagrees with its twin on level {li}, {name}: {err} > {LEVEL_ATOL}")
+            worst = max(worst, *errs)
+            timing.append((normal, ctx, parts))
+            call_ms.append(cuda_ms(lambda: cuda_level.flow_forward_level(flow, normal, ctx, parts), 20))
+            plain_ms.append(cuda_ms(lambda: cuda_level.flow_forward_level_plain(flow, normal, ctx, parts), 5))
+            flops, nbytes = _level_work(flow, rows, p, c_dim)
+            bounds.append(_bound_ms(flops, nbytes)[0])
+            flops_total += flops
+            bytes_total += nbytes
+            print(f"K5 flow_level level {li} (P={p}, rows={rows}, ragged 1/33/{rows + 7}): max_abs_err "
+                  f"{max(errs):.3e}; call {call_ms[-1]:.4f} ms, twin {plain_ms[-1]:.4f} ms, bound {bounds[-1]:.5f} ms")
+    bound, by = _bound_ms(flops_total, bytes_total)
+    print(f"K5 over one AR pass ({len(levels)} launches): calls {sum(call_ms):.4f} ms, twin {sum(plain_ms):.4f} ms, "
+          f"{flops_total / 1e9:.3f} GFLOP and {bytes_total / 1e6:.2f} MB → bound {bound:.5f} ms ({by})")
+    record = dict(
+        name="flow_level", replaces="humaniflow_tpu/flows/pallas_level.py:237", max_abs_err=worst,
+        plain_ms=sum(plain_ms), bound_ms=bound, bound_by=by, call_ms=sum(call_ms), ms_rows=len(levels[0][1]),
+        plain_ms_per_level=plain_ms, bound_ms_per_level=bounds, call_ms_per_level=call_ms,
+    )
+    return record, timing
+
+
+def time_flow_level(flow, record, timing):
+    """K5's device time per level (torch.profiler) on phase 8's inputs; the
+    CUDA events of phase 8 also count the wrapper's host time between these
+    short launches.  Fills record["ms"] (summed over the levels)."""
+    from humaniflow_torch.flows import cuda_level
+    from humaniflow_torch.utils.profiling import kernel_device_ms
+
+    per_level = [kernel_device_ms(lambda: cuda_level.flow_forward_level(flow, z, c, parts), "flow_level_kernel")
+                 for z, c, parts in timing]
+    record.update(ms=sum(per_level), ms_per_level=per_level)
+    print(f"K5 device time per level (torch.profiler, 20 launches each): "
+          f"{', '.join(f'{m:.4f}' for m in per_level)} ms; one AR pass {sum(per_level):.4f} ms "
+          f"against a bound of {record['bound_ms']:.5f} ms")
+
+
+def _set_fused(on: bool):
+    os.environ["HFT_FUSED_LEVEL"] = "1" if on else "0"
+
+
+def _uncropped_images(n, seed):
+    """n synthetic uncropped RGB images alternating between the two sizes of
+    UNCROPPED_SIZES: a bright upright blob off the centre on a noisy background."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    images = []
+    for i in range(n):
+        h, w = UNCROPPED_SIZES[i % 2]
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        cy, cx = rng.uniform(0.35, 0.65) * h, rng.uniform(0.3, 0.7) * w
+        body = np.exp(-(((xx - cx) / (0.08 * w)) ** 2 + ((yy - cy) / (0.3 * h)) ** 2))
+        img = 0.15 + 0.6 * body[..., None] + rng.normal(scale=0.05, size=(h, w, 3)).astype(np.float32)
+        images.append(np.clip(img, 0.0, 1.0).astype(np.float32))
+    return images
+
+
+def _damped_hrnet(dtype=None, device=None, final_bias=1.0):
+    """HRNet-W48 with seeded random weights: conv kernels damped ×0.25 so
+    that the residual stages keep trained-magnitude activations, and a
+    final-layer bias (default 1) that lifts the heatmap maxima over the 0.5
+    confidence threshold, so that the keypoint-box fallback re-crops as it
+    does for a trained net on a person."""
+    import torch
+
+    from humaniflow_torch.models import PoseHighResolutionNet
+
+    hrnet = PoseHighResolutionNet(dtype=dtype, device=device, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        for m in hrnet.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(0.25)
+        hrnet.final_layer.bias.fill_(final_bias)
+    return hrnet
+
+
+def _conv_flops(net, x):
+    """Operations of net's convolutions on input x: 2·(in/groups)·kh·kw per
+    output element, summed over one forward (forward hooks)."""
+    import torch
+
+    total = [0]
+
+    def count(m, args, out):
+        total[0] += 2 * out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+
+    handles = [m.register_forward_hook(count) for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            net(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def uncropped_predict(model, smpl, cfg, hrnet, images, seed):
+    """predict_hrnet_batch (keypoint-box fallback) → the square 256² crop of
+    each HRNet crop → predict_humaniflow; returns (outputs, host-clock ms of
+    the three stages, HRNet passes)."""
+    import torch
+
+    from humaniflow_torch.data.image_ops import batch_crop_affine
+    from humaniflow_torch.pipelines import predict_humaniflow
+    from humaniflow_torch.pipelines import predict_hrnet as ph
+
+    passes = []
+    handle = hrnet.register_forward_hook(lambda m, a, o: passes.append(1))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hr = ph.predict_hrnet_batch(hrnet, images)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n, (in_w, in_h) = len(images), ph.HRNET_INPUT_WH
+        side = float(max(in_w, in_h))
+        crop = batch_crop_affine(
+            (IMG, IMG), rgb=hr["cropped_images"], joints2d=hr["joints2D"],
+            bbox_centres=torch.tensor([in_h / 2.0, in_w / 2.0], device="cuda").expand(n, 2),
+            bbox_heights=torch.full((n,), side, device="cuda"), bbox_widths=torch.full((n,), side, device="cuda"),
+            orig_scale_factor=1.0,
+        )
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pred = predict_humaniflow(model, smpl, cfg, crop["rgb"], crop["joints2d"], hr["joints2Dconfs"],
+                                  num_samples=N, generator=torch.Generator("cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        handle.remove()
+    return {**pred, **hr}, {"hrnet": 1e3 * (t1 - t0), "crops": 1e3 * (t2 - t1), "predict": 1e3 * (t3 - t2)}, len(passes)
+
+
+def check_hrnet_against_cpu(crops):
+    """GPU HRNet (float32) against the CPU on 2 crops: heatmaps within
+    HEATMAP_RTOL of the largest |heatmap|; keypoints equal wherever the
+    heatmap's top-2 gap exceeds that tolerance.  Both nets without the
+    final-layer bias, which would only shift every heatmap by a constant."""
+    import torch
+
+    from humaniflow_torch.models import get_kp_locations_confs_from_heatmaps
+
+    gpu, cpu = _damped_hrnet(final_bias=0.0), _damped_hrnet(device="cpu", final_bias=0.0)
+    with torch.inference_mode():
+        hm_gpu = gpu(crops).cpu()
+        hm_cpu = cpu(crops.cpu())
+    tol = HEATMAP_RTOL * float(hm_cpu.abs().max())
+    err = float((hm_gpu - hm_cpu).abs().max())
+    kp_gpu, _ = get_kp_locations_confs_from_heatmaps(hm_gpu)
+    kp_cpu, _ = get_kp_locations_confs_from_heatmaps(hm_cpu)
+    top2 = hm_cpu.reshape(hm_cpu.shape[0], -1, hm_cpu.shape[-1]).topk(2, dim=1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > tol
+    differ = (kp_gpu != kp_cpu).any(-1)
+    print(f"HRNet GPU vs CPU (2 crops, 384×288, float32): heatmaps max abs diff {err:.3e} (tolerance {tol:.3e}); "
+          f"keypoints differ {int(differ.sum())} of {differ.numel()}, {int((differ & decisive).sum())} of them "
+          f"with a top-2 gap above the tolerance ({int(decisive.sum())} decisive)")
+    if not err <= tol:
+        raise AssertionError(f"GPU and CPU HRNet heatmaps disagree: {err} > {tol}")
+    if bool((differ & decisive).any()):
+        raise AssertionError("GPU and CPU HRNet keypoints differ where the heatmap's maximum is decisive")
+
+
+
 def main() -> int:
+    """Run the phases with the fused-level switch set as each needs it, and
+    restore the caller's setting afterwards."""
+    saved = os.environ.get("HFT_FUSED_LEVEL")
+    try:
+        return _main()
+    finally:
+        if saved is None:
+            os.environ.pop("HFT_FUSED_LEVEL", None)
+        else:
+            os.environ["HFT_FUSED_LEVEL"] = saved
+
+
+def _main() -> int:
     import torch
 
     import humaniflow_torch  # noqa: F401  (fails outside the repository)
@@ -442,7 +713,9 @@ def main() -> int:
     from humaniflow_torch.models import HumaniflowModel, smpl_forward, smpl_vertex_moments, synthetic_smpl
     from humaniflow_torch.pipelines import EVAL_METRICS_3DPW, EVAL_METRICS_SSP3D, predict_humaniflow
     from humaniflow_torch.utils.cuda_build import build_all
-    from humaniflow_torch.utils.profiling import cuda_ms, wall_ms
+    from humaniflow_torch.utils.profiling import cuda_ms, device_profile, wall_ms
+
+    _set_fused(False)  # phases 1-7: the default configuration
 
     # ---- phase 1: the card and the build
     smi = subprocess.run(
@@ -572,13 +845,107 @@ def main() -> int:
     if path_launches["3DPW"]["smpl_verts"] == 0:
         raise AssertionError("the 3DPW protocol did not launch K2")
     print(f"3DPW protocol B={B} N=10: {pw3d_img_s:.2f} img/s over {PROTOCOL_BATCHES - 1} batches after a warm-up")
+
+    # ---- phase 8: K5 against its plain twin on every depth level
+    records["flow_level"], k5_timing = check_flow_level(model, proxy)
+
+    # ---- phase 9: the fused-flow-level configuration on the main path
+    _set_fused(True)
+    _zero_counts()
+    pred_f = predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
+                                generator=torch.Generator("cuda").manual_seed(7))
+    path_launches["predict, fused level"] = _read_counts()
+    _zero_counts()
+    verts_pe_f, vertex_var_f = distribution_inference(7)
+    path_launches["distribution inference, fused level"] = _read_counts()
+    for path in ("predict, fused level", "distribution inference, fused level"):
+        c = path_launches[path]
+        if c["flow_level"] != len(model.levels) or c["smpl_verts"] == 0:
+            raise AssertionError(f"{path}: K5 launched {c['flow_level']} times (one AR pass has {len(model.levels)} "
+                                 f"levels), K2 {c['smpl_verts']} times")
+    if path_launches["distribution inference, fused level"]["smpl_moments"] == 0:
+        raise AssertionError("the fused distribution-inference program did not launch K1")
+    diffs = {k: float((pred_f[k] - pred[k]).abs().max())
+             for k in ("pose_rotmats_point_est", "pose_rotmats_samples", "verts_point_est", "verts_samples")}
+    print("fused vs eager flow, same noise, max abs diff: " + ", ".join(f"{k} {d:.3e}" for k, d in diffs.items()))
+    for k, d in diffs.items():
+        tol = FUSED_ROT_ATOL if "rotmats" in k else SLICE_ATOL
+        if not d <= tol:
+            raise AssertionError(f"the fused level moves {k} by {d} > {tol}")
+    torch.testing.assert_close(verts_pe_f, verts_pe, rtol=0, atol=SLICE_ATOL)
+    torch.testing.assert_close(vertex_var_f, vertex_var, rtol=FUSED_VAR_RTOL, atol=VAR_ATOL)
+    with torch.inference_mode():
+        mode_f = model.apply(pred_f["proxy_rep"])
+    sample0_f = float((mode_f["pose_rotmats_point_est"] - pred_f["pose_rotmats_point_est"]).abs().max())
+    print(f"fused level: sample 0 vs separate point-estimate pass: max abs diff {sample0_f:.3e}")
+    if not sample0_f <= SAMPLE0_ATOL:
+        raise AssertionError(f"fused level: sample 0 is not the point estimate: {sample0_f}")
+    turns = {"eager": [], "fused": []}
+    for on in (False, True, True, False):  # in turns, on one card
+        _set_fused(on)
+        turns["fused" if on else "eager"].append((
+            wall_ms(lambda: predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
+                                               generator=gen.manual_seed(8)), 5),
+            cuda_ms(lambda: distribution_inference(9), 10),
+            wall_ms(lambda: model_forward(gen.manual_seed(9)), 10),
+        ))
+    for name, runs in turns.items():
+        p_ms, d_ms, f_ms = (sum(r[i] for r in runs) / len(runs) for i in range(3))
+        print(f"{name} flow, B={B} N={N}: predict {p_ms:.2f} ms/batch, {B / p_ms * 1e3:.1f} img/s; distribution "
+              f"inference {d_ms:.2f} ms, {B / d_ms * 1e3:.1f} img/s; model forward wall {f_ms:.2f} ms "
+              f"(two turns: {', '.join(f'{r[0]:.2f}/{r[1]:.2f}/{r[2]:.2f}' for r in runs)})")
+
+    # ---- phase 10: uncropped-image predict, HRNet-W48 at 384×288, fused level
+    from humaniflow_torch.pipelines import predict_hrnet as ph
+
+    _set_fused(True)
+    uimages = _uncropped_images(B, seed=31)
+    for name, dtype in (("float32", None), ("bf16", torch.bfloat16)):
+        hrnet = _damped_hrnet(dtype=dtype)
+        _zero_counts()
+        out, _, passes = uncropped_predict(model, smpl, cfg, hrnet, uimages, seed=32)
+        counts = path_launches[f"uncropped predict, HRNet {name}"] = _read_counts()
+        if counts["flow_level"] == 0 or counts["smpl_verts"] == 0:
+            raise AssertionError(f"uncropped predict ({name}) did not launch K5 and K2: {counts}")
+        for k, shape in {**shapes, "cropped_images": (B, 384, 288, 3), "joints2D": (B, 17, 2)}.items():
+            if tuple(out[k].shape) != shape:
+                raise AssertionError(f"uncropped predict: {k} has shape {tuple(out[k].shape)}, expected {shape}")
+        for k, v in out.items():
+            if not bool(torch.isfinite(torch.as_tensor(v)).all()):
+                raise AssertionError(f"uncropped predict: {k} is not finite")
+        refined = int((out["bbox_heights"] < [h for h, _ in UNCROPPED_SIZES] * (B // 2)).sum())
+        if dtype is None:
+            check_hrnet_against_cpu(out["cropped_images"][:2])
+        splits = [uncropped_predict(model, smpl, cfg, hrnet, uimages, seed=33)[1] for _ in range(3)]
+        split = {k: sum(sp[k] for sp in splits) / len(splits) for k in splits[0]}
+        total = sum(split.values())
+        forward_ms = cuda_ms(lambda: ph._hrnet_keypoints(hrnet, out["cropped_images"]), 3)
+        flops = _conv_flops(hrnet, out["cropped_images"])
+        print(f"uncropped predict, HRNet {name}, B={B} N={N}: {B / total * 1e3:.2f} img/s ({total:.2f} ms/batch: "
+              f"HRNet stage {split['hrnet']:.2f} ms over {passes} passes (one normalise → HRNet → decode pass "
+              f"{forward_ms:.2f} ms, {flops / 1e12:.3f} TFLOP of convolutions, {flops / forward_ms / 1e9:.1f} "
+              f"TFLOP/s; the rest is upload and 384×288 crops), proxy crops {split['crops']:.2f} ms, "
+              f"predict {split['predict']:.2f} ms); {refined} of {B} boxes refined by the keypoint fallback")
+        del hrnet
     print(f"launches by path: {path_launches}")
 
+    # ---- profiler measurements, last: a profiler session leaves the host
+    # slower for the rest of the process.  K5's device time per level, then
+    # the forward's device time and launches per batch in both settings.
+    time_flow_level(model.flow, records["flow_level"], k5_timing)
+    for on in (False, True):
+        _set_fused(on)
+        prof = device_profile(lambda: model_forward(gen.manual_seed(9)), iters=5)
+        print(f"model forward, fused level {'on' if on else 'off'}: device busy {prof['device_busy_ms']:.2f} ms, "
+              f"{prof['launches']:.0f} kernel launches per batch")
+
     kernels = []
-    sources = {"smpl_verts": "smpl_lbs.cu", "smpl_moments": "smpl_lbs.cu", "coverage": "coverage.cu"}
+    sources = {"smpl_verts": "smpl_lbs.cu", "smpl_moments": "smpl_lbs.cu", "coverage": "coverage.cu",
+               "flow_level": "flow_level.cu"}
     for name, source in sources.items():
         rec = dict(records[name])
-        extra = {k: rec.pop(k) for k in ("ms_meshes", "plain_ms_meshes") if k in rec}
+        extra = {k: rec.pop(k) for k in ("ms_meshes", "plain_ms_meshes", "ms_rows", "ms_per_level", "call_ms",
+                                         "call_ms_per_level", "plain_ms_per_level", "bound_ms_per_level") if k in rec}
         kernels.append(dict(
             name=name, route="cuda", source=f"humaniflow_torch/csrc/{source}", replaces=rec["replaces"],
             launches=sum(c[name] for c in path_launches.values()), max_abs_err=rec["max_abs_err"], ms=rec["ms"],

@@ -1,4 +1,5 @@
 from .canny import CannyEdgeDetector
+from .hrnet import PoseHighResolutionNet, get_kp_locations_confs_from_heatmaps
 from .humaniflow import HumaniflowModel
 from .resnet import resnet18, resnet50
 from .smpl import (
@@ -13,7 +14,9 @@ from .smpl import (
 __all__ = [
     "CannyEdgeDetector",
     "HumaniflowModel",
+    "PoseHighResolutionNet",
     "SMPLModel",
+    "get_kp_locations_confs_from_heatmaps",
     "load_smpl_npz",
     "resnet18",
     "resnet50",

@@ -9,6 +9,7 @@ from an explicit torch.Generator, or takes the base noise from the caller
 (`base_noise`), so that tests can feed the port the numbers JAX drew.
 """
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.defaults import ModelConfig
+from ..flows import cuda_level
 from ..flows.factory import ConditionalFlow, create_conditional_norm_flow
 from ..ops.rotation import rot6d_to_rotmat
 from ..ops.so3 import so3_exp
@@ -159,6 +161,20 @@ class HumaniflowModel(nn.Module):
         ctx = torch.einsum("...pi,poi->...po", ctx_in, self.fc_flow_context_weight[parts])
         return F.elu(ctx + self.fc_flow_context_bias[parts])
 
+    def _fused_level_enabled(self) -> bool:
+        """Whether the autoregressive pass routes each level's flow forward
+        through the fused level kernel K5 (flows/cuda_level.py): the JAX
+        package's switch, HFT_FUSED_LEVEL=1 (or "on"), and a flow that
+        `supports_flow` accepts.  Default off, as in the JAX package.  The
+        JAX model reads the variable when it traces; eager PyTorch has no
+        trace, so it is read on every call and a caller can toggle it.  On
+        CUDA the fused route launches K5; on the CPU its plain twin runs,
+        as the JAX package runs the Pallas kernel in interpret mode off the
+        TPU."""
+        if os.environ.get("HFT_FUSED_LEVEL", "auto") not in ("1", "on"):
+            return False
+        return cuda_level.supports_flow(self.flow)
+
     def _autoregress(self, isgc, level_noise=None, zero_sample0=False):
         """Depth-level autoregressive pass.
 
@@ -172,6 +188,7 @@ class HumaniflowModel(nn.Module):
         batch_shape = isgc.shape[:-1]
         so3_buf = isgc.new_zeros(batch_shape + (self.num_bodyparts, 3))
         rot_buf = isgc.new_zeros(batch_shape + (self.num_bodyparts, 3, 3))
+        fused = self._fused_level_enabled()
         for li in range(len(self.levels)):
             parts = getattr(self, f"level_parts_{li}")
             ctx = self._part_contexts(parts, isgc, rot_buf)
@@ -182,7 +199,10 @@ class HumaniflowModel(nn.Module):
                 if zero_sample0:
                     noise = torch.cat([torch.zeros_like(noise[:, :1]), noise], dim=1)
                 z = noise * self.flow.base_dist_std
-            x = self.flow(z, ctx, parts)
+            if fused:  # the einsum in _part_contexts may leave ctx strided
+                x = cuda_level.flow_forward_level(self.flow, z.contiguous(), ctx.contiguous(), parts)
+            else:
+                x = self.flow(z, ctx, parts)
             so3_buf[..., parts, :] = x
             rot_buf[..., parts, :, :] = so3_exp(x)
         return so3_buf, rot_buf

@@ -5,6 +5,7 @@ from .predict import (
     predict_humaniflow,
     save_pred_output,
 )
+from .predict_hrnet import predict_hrnet_batch
 from .protocols import EVAL_METRICS_3DPW, EVAL_METRICS_SSP3D
 
 __all__ = [
@@ -13,6 +14,7 @@ __all__ = [
     "build_proxy_representation",
     "evaluate_humaniflow",
     "make_predict_fn",
+    "predict_hrnet_batch",
     "predict_humaniflow",
     "save_pred_output",
 ]

@@ -157,13 +157,14 @@ def predict_humaniflow(
     """Batched prediction over pre-cropped images.
 
     :param images: (B, wh, wh, 3) RGB in [0, 1]; :param joints2d: (B, 17, 2)
-        keypoints in crop coordinates (e.g. from HRNet).
+        keypoints in crop coordinates (e.g. from HRNet); numpy arrays or
+        tensors.
     :param generator: sampling noise; default a generator on `device` seeded
         with 0.  :param base_noise: explicit per-level noise instead.
     :param device: default CUDA; raises if CUDA is unavailable.
     """
     device = resolve_device(device)
-    as_t = lambda a: torch.as_tensor(np.asarray(a), device=device)  # noqa: E731
+    as_t = lambda a: torch.as_tensor(a if isinstance(a, torch.Tensor) else np.asarray(a), device=device)  # noqa: E731
     proxy = build_proxy_representation(
         as_t(images).to(torch.float32), as_t(joints2d),
         None if joints2d_conf is None else as_t(joints2d_conf), cfg,

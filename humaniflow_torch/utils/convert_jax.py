@@ -10,6 +10,10 @@ onto the port's HumaniflowModel:
 * the 23-part stacked `fc_flow_context` and `flows` trees → the stacked
   (23, out, in) weights of the port.
 
+`hrnet_params_from_jax` does the same for the flax PoseHighResolutionNet's
+variables ({'params', 'batch_stats'}) onto the port's PoseHighResolutionNet,
+whose module paths are the flax ones joined with dots.
+
 `smpl_from_numpy` (defined in models/smpl.py, re-exported here) does the
 same for SMPL arrays, e.g. the fields of a JAX SMPLModel.
 """
@@ -19,10 +23,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.hrnet import PoseHighResolutionNet
 from ..models.humaniflow import HumaniflowModel
 from ..models.smpl import smpl_from_numpy
 
-__all__ = ["jax_params_to_state_dict", "params_from_jax", "port_key", "smpl_from_numpy"]
+__all__ = [
+    "hrnet_params_from_jax", "hrnet_port_key", "jax_params_to_state_dict", "params_from_jax", "port_key",
+    "smpl_from_numpy",
+]
 
 _ENCODER_LEAVES = {
     ("params", "kernel"): "weight",
@@ -75,10 +83,7 @@ def jax_params_to_state_dict(np_params) -> Dict[str, torch.Tensor]:
     return state
 
 
-def params_from_jax(np_params, model: HumaniflowModel) -> HumaniflowModel:
-    """Load the JAX parameter pytree into `model` (in place; returns it).
-    Raises if a tensor of either side has no counterpart or another shape."""
-    state = jax_params_to_state_dict(np_params)
+def _load_checked(model, state):
     own = model.state_dict()
     missing = {k for k in own if not k.endswith("num_batches_tracked")} - set(state)
     unexpected = set(state) - set(own)
@@ -89,3 +94,30 @@ def params_from_jax(np_params, model: HumaniflowModel) -> HumaniflowModel:
             raise ValueError(f"{k}: JAX shape {tuple(v.shape)} vs port {tuple(own[k].shape)}")
     model.load_state_dict(state, strict=False)
     return model
+
+
+def params_from_jax(np_params, model: HumaniflowModel) -> HumaniflowModel:
+    """Load the JAX parameter pytree into `model` (in place; returns it).
+    Raises if a tensor of either side has no counterpart or another shape."""
+    return _load_checked(model, jax_params_to_state_dict(np_params))
+
+
+def hrnet_port_key(path: Tuple[str, ...], ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """(state_dict key, axis permutation or None) of the flax HRNet variable
+    at `path` = (collection, *modules, leaf)."""
+    collection, *mods, leaf = path
+    key = ".".join(mods) + "." + _ENCODER_LEAVES[(collection, leaf)]
+    return key, (3, 2, 0, 1) if ndim == 4 else None  # HWIO → OIHW
+
+
+def hrnet_params_from_jax(np_variables, hrnet: PoseHighResolutionNet) -> PoseHighResolutionNet:
+    """Load flax PoseHighResolutionNet variables ({'params', 'batch_stats'},
+    numpy leaves) into `hrnet` (in place; returns it).  Raises if a tensor
+    of either side has no counterpart or another shape."""
+    state = {}
+    for path, a in _flatten(np_variables):
+        key, perm = hrnet_port_key(path, a.ndim)
+        if perm is not None:
+            a = a.transpose(perm)
+        state[key] = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    return _load_checked(hrnet, state)

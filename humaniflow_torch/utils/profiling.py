@@ -1,7 +1,7 @@
 """Where the time of distribution inference and evaluation goes on the card.
 
-    python -m humaniflow_torch.utils.profiling [--batch 32] [--samples 100]
-    python -m humaniflow_torch.utils.profiling --protocol ssp3d|3dpw [--batch 32]
+    python -m humaniflow_torch.utils.profiling [--batch 32] [--samples 100] [--fused-level]
+    python -m humaniflow_torch.utils.profiling --protocol ssp3d|3dpw [--batch 32] [--fused-level]
 
 Builds the default model (seeded random weights) and synthetic SMPL at 6890
 vertices.  Without --protocol it prints, for the model forward and for the
@@ -23,10 +23,15 @@ staged on the card: the eval step (proxy, forward, SMPL through K2), the
 silhouettes (DensePose gather, projection, K3), the metrics, and the three
 together; for SSP-3D also K3 alone on the batch's 3,200 sample meshes.
 
+--fused-level sets HFT_FUSED_LEVEL=1 for the run, so that the flow pass
+goes through the fused level kernel K5; run the script with and without it
+to compare the two configurations.
+
 Needs a CUDA device; it exits non-zero without one.
 """
 
 import argparse
+import os
 import sys
 import time
 
@@ -60,6 +65,27 @@ def cuda_ms(fn, iters):
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / iters
+
+
+def kernel_device_ms(fn, name: str, iters: int = 20) -> float:
+    """Mean device duration (torch.profiler) of the CUDA kernels whose name
+    contains `name` per call of fn, after one warm-up call: the kernel's own
+    time, without the host time between launches that CUDA events around a
+    loop of short launches also count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    if not us:
+        raise RuntimeError(f"the profiler saw no kernel named like {name!r}")
+    return sum(us) / 1e3 / iters
 
 
 def device_profile(fn, iters: int = 5, top: int = 8) -> dict:
@@ -202,7 +228,8 @@ def protocol_breakdown(protocol: str, b: int):
     programs["metrics"] = update
     stages = [fn for name, fn in programs.items() if name != "k3_on_the_samples"]
     programs["whole_batch"] = lambda: [fn() for fn in stages]
-    print(f"{protocol} protocol, B={b} N={n} on {torch.cuda.get_device_name(0)}")
+    print(f"{protocol} protocol, B={b} N={n} on {torch.cuda.get_device_name(0)}, "
+          f"fused level {'on' if model._fused_level_enabled() else 'off'}")
     _print_profiles(programs)
 
 
@@ -211,7 +238,11 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--samples", type=int, default=100)
     parser.add_argument("--protocol", choices=("ssp3d", "3dpw"), default=None)
+    parser.add_argument("--fused-level", action="store_true",
+                        help="run the flow through the fused level kernel (HFT_FUSED_LEVEL=1)")
     args = parser.parse_args(argv)
+    if args.fused_level:
+        os.environ["HFT_FUSED_LEVEL"] = "1"
 
     import torch
 
@@ -271,7 +302,8 @@ def main(argv=None) -> int:
             "flow_pass_ms": cuda_ms(flows, 10),
             "flow_pass_wall_ms": wall_ms(flows, 10),
         }
-    print(f"B={b} N={n} on {torch.cuda.get_device_name(0)}")
+    print(f"B={b} N={n} on {torch.cuda.get_device_name(0)}, "
+          f"fused level {'on' if model._fused_level_enabled() else 'off'}")
     print("forward split:", {k: round(v, 3) for k, v in split.items()})
     _print_profiles({"model_forward": forward, "distribution_inference": program})
     return 0

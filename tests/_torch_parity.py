@@ -59,6 +59,29 @@ def jax_params_from_port(port_model, jax_model, input_shape=(1, IMG, IMG, 18)):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+def random_hrnet_variables(flax_hrnet, input_shape=(1, 96, 64, 3), seed: int = 0, kernel_scale: float = 1.0,
+                           random_batchnorm: bool = True):
+    """Flax HRNet variables (numpy leaves) on the structure of
+    flax_hrnet.init (traced, not run): LeCun-normal kernels times
+    kernel_scale; with random_batchnorm, small random biases and non-trivial
+    BatchNorm affine weights and running statistics, else zero biases and
+    identity BatchNorm."""
+    shapes = jax.eval_shape(lambda k: flax_hrnet.init(k, jnp.zeros(input_shape), train=False), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, sd):
+        name, shape = path[-1].key, sd.shape
+        if name == "kernel":
+            a = rng.normal(0.0, kernel_scale * float(np.prod(shape[:-1])) ** -0.5, shape)
+        elif name in ("scale", "var"):
+            a = rng.uniform(0.5, 1.5, shape) if random_batchnorm else np.ones(shape)
+        else:  # bias, mean
+            a = rng.normal(0.0, 0.1, shape) if random_batchnorm else np.zeros(shape)
+        return a.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 def jax_noise(jax_model, key, b: int, n: int, n_betas: int = 10):
     """(shape noise (B, N, nb), per-level pose noise [(B, N, P, 3)]) exactly
     as HumaniflowModel.apply draws them from `key`."""

@@ -47,6 +47,9 @@ def test_port_imports_with_jax_blocked():
         "import humaniflow_torch.pipelines, humaniflow_torch.utils.convert_jax\n"
         "import humaniflow_torch.models.cuda_lbs, humaniflow_torch.utils.cuda_build\n"
         "import humaniflow_torch.render.cuda_coverage, humaniflow_torch.pipelines.evaluate\n"
+        "import humaniflow_torch.flows.cuda_level, humaniflow_torch.models.hrnet\n"
+        "import humaniflow_torch.pipelines.predict_hrnet, humaniflow_torch.utils.load_reference\n"
+        "import humaniflow_torch.cli.run_predict\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -55,9 +58,16 @@ def test_port_imports_with_jax_blocked():
 
 
 def _entry_points():
+    from humaniflow_torch.cli import run_predict
     from humaniflow_torch.configs import get_humaniflow_cfg_defaults
-    from humaniflow_torch.models import HumaniflowModel, synthetic_smpl
-    from humaniflow_torch.pipelines import EVAL_METRICS_3DPW, evaluate_humaniflow, make_predict_fn, predict_humaniflow
+    from humaniflow_torch.models import HumaniflowModel, PoseHighResolutionNet, synthetic_smpl
+    from humaniflow_torch.pipelines import (
+        EVAL_METRICS_3DPW,
+        evaluate_humaniflow,
+        make_predict_fn,
+        predict_hrnet_batch,
+        predict_humaniflow,
+    )
     from humaniflow_torch.render import TexturedIUVRenderer
 
     cfg = get_humaniflow_cfg_defaults()
@@ -73,6 +83,9 @@ def _entry_points():
         "SMPLModel.to": lambda: smpl.to(),
         "evaluate_humaniflow": lambda: evaluate_humaniflow(model, smpl, smpl, smpl, cfg, [], EVAL_METRICS_3DPW),
         "TexturedIUVRenderer": lambda: TexturedIUVRenderer(img_wh=32),
+        "PoseHighResolutionNet": lambda: PoseHighResolutionNet(),
+        "predict_hrnet_batch": lambda: predict_hrnet_batch(None, [images[0]]),
+        "cli.run_predict": lambda: run_predict.main(["-I", REPO, "-S", REPO]),
     }
 
 
@@ -80,7 +93,8 @@ def _entry_points():
     "name",
     [
         "predict_humaniflow", "make_predict_fn", "HumaniflowModel", "synthetic_smpl", "SMPLModel.to",
-        "evaluate_humaniflow", "TexturedIUVRenderer",
+        "evaluate_humaniflow", "TexturedIUVRenderer", "PoseHighResolutionNet", "predict_hrnet_batch",
+        "cli.run_predict",
     ],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(name):

@@ -1,6 +1,6 @@
-"""Kernels K1 (smpl_moments) and K2 (smpl_verts) of csrc/smpl_lbs.cu and K3
-(coverage) of csrc/coverage.cu against their plain PyTorch twins, on an
-NVIDIA GPU.
+"""Kernels K1 (smpl_moments) and K2 (smpl_verts) of csrc/smpl_lbs.cu, K3
+(coverage) of csrc/coverage.cu and K5 (flow_level) of csrc/flow_level.cu
+against their plain PyTorch twins, on an NVIDIA GPU.
 
 Every test here is marked `cuda` and skips without a card.  The file imports
 nothing of JAX, so that it also runs where JAX is not installed:
@@ -149,3 +149,85 @@ def test_coverage_wrapper_rejects_bad_inputs():
             cuda_coverage.coverage(*args, 64)
     with pytest.raises(ValueError):
         cuda_coverage.coverage(sv, faces, 64, cull_sign=2)
+
+
+# K5 (flow_level): kernel against its plain twin, 2e-5 abs (the JAX package's
+# Mosaic-vs-XLA bound for the fused level; float32 sums in another order).
+LEVEL_ATOL = 2e-5
+
+
+def _flow_model():
+    from humaniflow_torch.configs import get_humaniflow_cfg_defaults
+    from humaniflow_torch.models import HumaniflowModel
+
+    return HumaniflowModel(get_humaniflow_cfg_defaults().MODEL, generator=torch.Generator().manual_seed(0))
+
+
+def _level_inputs_cuda(p, rows, c, seed):
+    """z: 0.6·N(0, 1), with mode rows (0) and tail rows (±10) first; ctx
+    ELU(N(0, 1)) as the model's contexts."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    z = 0.6 * torch.randn((rows, p, 3), generator=g, device="cuda")
+    z[:4] = 0.0
+    z[4:8] = 10.0
+    z[8:12] = -10.0
+    ctx = torch.nn.functional.elu(torch.randn((rows, p, c), generator=g, device="cuda"))
+    return z, ctx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 33, 3239])
+def test_flow_level_kernel_matches_plain_on_every_level(rows):
+    _require_cuda()
+    from humaniflow_torch.flows import cuda_level
+
+    model = _flow_model()
+    for li, parts in enumerate(model.levels):
+        idx = getattr(model, f"level_parts_{li}")
+        z, ctx = _level_inputs_cuda(len(parts), rows, 64, seed=li)
+        before = cuda_level.LAUNCHES["flow_level"]
+        with torch.inference_mode():
+            got = cuda_level.flow_forward_level(model.flow, z, ctx, idx)
+            torch.cuda.synchronize()
+            want = cuda_level.flow_forward_level_plain(model.flow, z, ctx, idx)
+        assert cuda_level.LAUNCHES["flow_level"] == before + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=LEVEL_ATOL, msg=f"level {li}")
+
+
+@pytest.mark.cuda
+def test_flow_level_wrapper_rejects_bad_inputs():
+    _require_cuda()
+    from humaniflow_torch.flows import cuda_level
+
+    model = _flow_model()
+    idx = model.level_parts_3
+    z, ctx = _level_inputs_cuda(len(idx), 16, 64, seed=0)
+    bad = [
+        (z.double(), ctx, idx), (z, ctx.transpose(0, 1).contiguous().transpose(0, 1), idx), (z, ctx, idx.cpu()),
+        (z, ctx, idx.int()), (z, ctx[..., :32].contiguous(), idx), (z[:8], ctx, idx), (z.cpu().cuda(), ctx.cpu(), idx),
+    ]
+    for args in bad:
+        with pytest.raises((TypeError, ValueError)):
+            cuda_level.flow_forward_level(model.flow, *args)
+
+
+@pytest.mark.cuda
+def test_fused_level_model_on_the_card(monkeypatch):
+    """apply(num_samples=N) with HFT_FUSED_LEVEL=1 launches K5 once per level
+    and agrees with the eager flow (2e-4, the JAX fused-vs-XLA bound)."""
+    _require_cuda()
+    from humaniflow_torch.flows import cuda_level
+
+    model = _flow_model()
+    proxy = torch.rand((4, 64, 64, 18), generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+    noise = model._draw_level_noise((4, 10), torch.Generator("cuda").manual_seed(2))
+    with torch.inference_mode():
+        monkeypatch.setenv("HFT_FUSED_LEVEL", "0")
+        want = model.apply(proxy, num_samples=10, base_noise=noise, use_shape_mode_for_samples=True)
+        monkeypatch.setenv("HFT_FUSED_LEVEL", "1")
+        before = cuda_level.LAUNCHES["flow_level"]
+        got = model.apply(proxy, num_samples=10, base_noise=noise, use_shape_mode_for_samples=True)
+        torch.cuda.synchronize()
+    assert cuda_level.LAUNCHES["flow_level"] == before + len(model.levels)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=2e-4, msg=k)
