@@ -36,10 +36,20 @@ Phases, each of which raises on failure (exit code != 0):
    keypoint-box fallback) → the 256² crop → predict_humaniflow with the
    fused level, N=100, with float32 and with bf16 HRNet convolutions; check
    GPU HRNet heatmaps and keypoints against the CPU on 2 images, and time it
-   (img/s, and the split into HRNet, crops and predict).
+   (img/s, and the split into HRNet, crops and predict);
+11. training: hold kernel K4 (raster) against its plain twin, bit for bit,
+   on posed bodies at 256² with the training flags and with fragments,
+   linear attributes and depth gradients, culled and not, and time it at
+   the training batch; hold K2 with its gradient against autograd of its
+   twin at B=72 and B=576; check one train step on the card against the CPU
+   on a small batch; then train at full width with the training renderer
+   (K4, per-face texels, culling): the synthetic batch at B=72 (256², 8
+   joint samples), 5 train steps on fresh batches and 10 on one fixed batch
+   (its loss must fall), timed (synth, upload, step, img/s), and a short
+   train_humaniflow run (2 train + 1 val steps) writing a checkpoint.
 
-Phases 1-7 run with the fused level off.  Each path of phases 3, 4, 6, 7, 9
-and 10 is driven with the kernel launch counters
+Phases 1-7 and 11 run with the fused level off.  Each path of phases 3, 4,
+6, 7, 9, 10 and 11 is driven with the kernel launch counters
 set to 0 just before it and read just after; launches made to compare a
 kernel with its twin, or to time it, are not counted.  Prints one
 {"kernels": [...]} line, then the card line as nvidia-smi gives it, and last
@@ -70,6 +80,11 @@ FUSED_ROT_ATOL = 2e-4  # fused vs eager flow, rotations (the JAX fused-vs-XLA bo
 FUSED_VAR_RTOL = 1e-2  # fused vs eager variance: sample vertices move by ≤ 5e-4 m of ~0.1 m spreads
 HEATMAP_RTOL = 1e-4  # GPU vs CPU HRNet heatmaps, relative to the largest |heatmap|
 SPLINE_OPS = 190  # arithmetic of one spline evaluation, counted from csrc/flow_level.cu
+TRAIN_B, TRAIN_NJ = 72, 8  # the training batch and its joints-2D samples (default config)
+GRAD_RTOL = 1e-3  # GPU vs CPU train step: each gradient tensor, relative to its largest |value|
+LOSS_RTOL = 2e-4  # GPU vs CPU train step: loss terms
+K2_GRAD_RTOL = 1e-5  # K2's backward vs autograd of the twin, relative to the largest gradient
+RASTER_TEST_OPS = 13  # K4 pass 1 per pixel test: w0, w1, w2 (8), z (4), the compare
 RADIAL_OPS = 12  # the radial tanh per row
 UNCROPPED_SIZES = ((480, 640), (720, 540))  # (H, W) of the synthetic uncropped images
 
@@ -193,12 +208,16 @@ def check_against_cpu(model, smpl, cfg):
         raise AssertionError(f"GPU and CPU predict disagree: {worst} > {SLICE_ATOL}")
 
 
-def _zero_counts():
+def _all_counts():
     from humaniflow_torch.flows import cuda_level
     from humaniflow_torch.models import cuda_lbs
-    from humaniflow_torch.render import cuda_coverage
+    from humaniflow_torch.render import cuda_coverage, cuda_raster
 
-    for counts in (cuda_lbs.LAUNCHES, cuda_coverage.LAUNCHES, cuda_level.LAUNCHES):
+    return cuda_lbs.LAUNCHES, cuda_coverage.LAUNCHES, cuda_level.LAUNCHES, cuda_raster.LAUNCHES
+
+
+def _zero_counts():
+    for counts in _all_counts():
         for k in counts:
             counts[k] = 0
 
@@ -206,12 +225,11 @@ def _zero_counts():
 def _read_counts():
     import torch
 
-    from humaniflow_torch.flows import cuda_level
-    from humaniflow_torch.models import cuda_lbs
-    from humaniflow_torch.render import cuda_coverage
-
     torch.cuda.synchronize()
-    return {**cuda_lbs.LAUNCHES, **cuda_coverage.LAUNCHES, **cuda_level.LAUNCHES}
+    out = {}
+    for counts in _all_counts():
+        out.update(counts)
+    return out
 
 
 def _posed_screen(renderer, smpl, b, seed):
@@ -548,11 +566,14 @@ def time_flow_level(flow, record, timing):
     """K5's device time per level (torch.profiler) on phase 8's inputs; the
     CUDA events of phase 8 also count the wrapper's host time between these
     short launches.  Fills record["ms"] (summed over the levels)."""
+    import torch
+
     from humaniflow_torch.flows import cuda_level
     from humaniflow_torch.utils.profiling import kernel_device_ms
 
-    per_level = [kernel_device_ms(lambda: cuda_level.flow_forward_level(flow, z, c, parts), "flow_level_kernel")
-                 for z, c, parts in timing]
+    with torch.inference_mode():  # K5 has no backward and refuses grad mode
+        per_level = [kernel_device_ms(lambda: cuda_level.flow_forward_level(flow, z, c, parts), "flow_level_kernel")
+                     for z, c, parts in timing]
     record.update(ms=sum(per_level), ms_per_level=per_level)
     print(f"K5 device time per level (torch.profiler, 20 launches each): "
           f"{', '.join(f'{m:.4f}' for m in per_level)} ms; one AR pass {sum(per_level):.4f} ms "
@@ -684,6 +705,326 @@ def check_hrnet_against_cpu(crops):
     if bool((differ & decisive).any()):
         raise AssertionError("GPU and CPU HRNet keypoints differ where the heatmap's maximum is decisive")
 
+
+
+def _training_screen(renderer, smpl, b, seed):
+    """(screen coordinates (b, 7829, 3), DensePose vertices, cam_t) of b
+    synthetic bodies as the training render sees them: poses 0.3·N(0, 1),
+    shapes 1.25·N(0, 1), flipped by the x-axis π rotation, camera
+    (0, −0.2, 2.5) + 0.05·N(0, 1)."""
+    import math
+
+    import torch
+
+    from humaniflow_torch.models import smpl_forward
+    from humaniflow_torch.ops import aa_rotate_rotmats, aa_rotate_translate_points, so3_exp
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    x_axis = torch.tensor([1.0, 0.0, 0.0], device="cuda")
+    with torch.inference_mode():
+        pose = so3_exp(0.3 * torch.randn((b, 24, 3), generator=g, device="cuda"))
+        _, glob = aa_rotate_rotmats(pose[:, 0], x_axis, math.pi)
+        shape = 1.25 * torch.randn((b, 10), generator=g, device="cuda")
+        verts = smpl_forward(smpl, shape, pose[:, 1:], glob)["vertices"]
+        verts = aa_rotate_translate_points(verts, x_axis, math.pi, torch.zeros(3, device="cuda"))
+        cam_t = torch.tensor([0.0, -0.2, 2.5], device="cuda") + 0.05 * torch.randn((b, 3), generator=g, device="cuda")
+        dp = verts[:, renderer.dp["vertex_map"]]
+        return renderer._screen_verts(dp, cam_t).contiguous(), dp, cam_t
+
+
+def _training_renderer(cfg):
+    """The renderer of the training configuration (scripts/run_train.py --cull;
+    its binning capacities live_cap 28672 and k_max 512 have no counterpart,
+    K4 has no capacity)."""
+    from humaniflow_torch.render import TexturedIUVRenderer
+
+    renderer = TexturedIUVRenderer(
+        img_wh=IMG, projection_type="perspective", focal_length=cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH,
+        rasterizer="binned", texture_sampling="face", emit_uv=False, binned_cull=True, emit_overflow=True,
+    )
+    if renderer.rasterizer != "binned":
+        raise AssertionError("the training renderer did not route to the attribute rasterizer")
+    return renderer
+
+
+def check_raster(smpl, cfg):
+    """Phase 11a: K4 against its plain twin, bit for bit, and its time at the
+    training batch; returns its record."""
+    import torch
+
+    from humaniflow_torch.render import cuda_raster
+    from humaniflow_torch.utils.profiling import cuda_ms
+
+    renderer = _training_renderer(cfg)
+    faces = renderer.dp["faces"]
+    f = faces.shape[0]
+    sv, _, _ = _training_screen(renderer, smpl, 6, seed=41)
+    g = torch.Generator("cuda").manual_seed(44)
+    rand = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    cases = {
+        "training flags: 4 constants, culled": dict(attrs=rand(6, f, 4), emit_frags=False, cull_sign=1),
+        "fragments, 2 linear + 1 constant, z_grads": dict(attrs=rand(1, f, 7), n_lin=2, z_grads=True, cull_sign=0),
+        "the same, culled": dict(attrs=rand(1, f, 7), n_lin=2, z_grads=True, cull_sign=1),
+    }
+    for name, kw in cases.items():
+        got = cuda_raster.raster(sv, faces, IMG, **kw)
+        torch.cuda.synchronize()
+        want = cuda_raster.raster_plain(sv, faces, IMG, **kw)
+        diff = int((got[0] != want[0]).sum())
+        if got[1] is not None:
+            diff += sum(int((a != b).sum()) for a, b in zip(got[1], want[1]))
+        diff += int((got[2] != want[2]).sum())
+        covered = int((want[0] < 1e9).sum())
+        print(f"K4 raster, 6 posed bodies at {IMG}², {name}: {diff} differing values, {covered} covered px, "
+              f"overflow {int(got[3].sum())}")
+        if diff or int(got[3].abs().sum()) or int(want[3].abs().sum()) or covered == 0:
+            raise AssertionError(f"K4 disagrees with its plain twin ({name})")
+
+    # time at the training shape: B meshes, the face-texel render's 4 constants, culled
+    sv, _, _ = _training_screen(renderer, smpl, TRAIN_B, seed=42)
+    attrs = rand(TRAIN_B, f, 4)
+    run = lambda m: cuda_raster.raster(sv[:m], faces, IMG, attrs=attrs[:m], emit_frags=False, cull_sign=1)  # noqa: E731
+    depth, _, _, overflow = run(TRAIN_B)
+    want = cuda_raster.raster_plain(sv[:4], faces, IMG, attrs=attrs[:4], emit_frags=False, cull_sign=1)
+    if not torch.equal(depth[:4], want[0]) or int(overflow.abs().sum()):
+        raise AssertionError("K4 disagrees with its plain twin at the training shape")
+    tests, kept = _coverage_work(sv, faces, IMG, 1)
+    covered = int((depth < 1e9).sum())
+    # pass 1: RASTER_TEST_OPS per pixel test, ~45 per kept face (area, coefficients,
+    # box); pass 2: ~45 per covered pixel (coefficients again, w0, w1, the planes)
+    flops = RASTER_TEST_OPS * tests + 45 * kept + 45 * covered
+    nbytes = 4 * (sv.numel() + faces.numel() + attrs.numel() + depth.numel() * (1 + 4) + TRAIN_B)
+    bound, by = _bound_ms(flops, nbytes)
+    ms = cuda_ms(lambda: run(TRAIN_B), 20)
+    plain_ms = cuda_ms(
+        lambda: cuda_raster.raster_plain(sv[:4], faces, IMG, attrs=attrs[:4], emit_frags=False, cull_sign=1), 2)
+    print(f"K4 at B={TRAIN_B}, {IMG}²: {tests:.4e} pixel tests over {kept} kept faces, {covered} covered px, "
+          f"{nbytes / 1e9:.3f} GB; {ms:.4f} ms per batch against a bound of {bound:.4f} ms ({by}); "
+          f"twin {plain_ms:.2f} ms on 4 meshes")
+    return dict(
+        name="raster", replaces="humaniflow_tpu/render/binned_rasterizer.py:76", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, ms_meshes=TRAIN_B, plain_ms_meshes=4,
+    )
+
+
+def check_smpl_backward(smpl):
+    """Phase 11b: K2 with its gradient against autograd of its twin at the
+    training rows (B = 72 targets and point estimates, B·N = 576 samples);
+    returns the backward's record."""
+    import torch
+
+    from humaniflow_torch.models import cuda_lbs
+    from humaniflow_torch.utils.profiling import cuda_ms
+
+    out = {}
+    for rows in (TRAIN_B, TRAIN_B * TRAIN_NJ):
+        args = _kernel_args(smpl, (rows,), V, seed=7)
+        leaf = [a.detach().requires_grad_(i < 3) for i, a in enumerate(args)]
+        grad = torch.randn((rows, 3, V), generator=torch.Generator("cuda").manual_seed(8), device="cuda")
+        verts = cuda_lbs.smpl_verts_differentiable(*leaf)
+        got = torch.autograd.grad(verts, leaf[:3], grad)
+        plain = cuda_lbs.smpl_verts_plain(*leaf)
+        want = torch.autograd.grad(plain, leaf[:3], grad)
+        fwd_err = float((verts - plain).detach().abs().max())
+        rel = max(float((a - w).abs().max() / w.abs().max()) for a, w in zip(got, want))
+        err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+        needs = [True] * 3 + [False] * 4
+        fwd_ms = cuda_ms(lambda: cuda_lbs.smpl_verts(*args), 20)
+        bwd_ms = cuda_ms(lambda: cuda_lbs.smpl_verts_backward(grad, needs, *args), 10)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(cuda_lbs.smpl_verts_plain(*leaf), leaf[:3], grad), 5)
+        nb = args[1].shape[-1]
+        # t12 (24·12), dp (9), the posed vertices (3·(nb + 207)), G12 (9), dA (12·24),
+        # dβ (3·nb), dpose_feature (3·207) multiply-adds per (row, vertex)
+        flops = 2 * rows * V * (288 + 9 + 3 * (nb + 207) + 9 + 288 + 3 * nb + 3 * 207)
+        nbytes = 4 * (grad.numel() + sum(a.numel() for a in args) + sum(a.numel() for a in args[:3]))
+        bound, by = _bound_ms(flops, nbytes)
+        print(f"K2 with its gradient, rows={rows}: forward max_abs_err {fwd_err:.3e} m; backward max_abs_err "
+              f"{err:.3e}, {rel:.3e} of the largest; forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms "
+              f"(bound {bound:.4f} ms, {by}), autograd of the twin (forward + backward) {plain_ms:.4f} ms")
+        if not (fwd_err <= VERTS_ATOL and rel <= K2_GRAD_RTOL):
+            raise AssertionError(f"K2's gradient disagrees with autograd of its twin at rows={rows}: {rel}")
+        out[rows] = dict(err=err, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_ms=plain_ms, bound=bound, by=by)
+    b = out[TRAIN_B * TRAIN_NJ]
+    return dict(
+        name="smpl_verts_backward", replaces="humaniflow_tpu/models/pallas_lbs.py:364",
+        max_abs_err=max(o["err"] for o in out.values()), ms=b["bwd_ms"], plain_ms=b["plain_ms"],
+        bound_ms=b["bound"], bound_by=b["by"], ms_rows=TRAIN_B * TRAIN_NJ,
+        ms_b72=out[TRAIN_B]["bwd_ms"], forward_ms_b72=out[TRAIN_B]["fwd_ms"], forward_ms_b576=b["fwd_ms"],
+    )
+
+
+def _train_batch(b, img, seed, device):
+    """A training batch (proxy, targets, 2D joints in pixels) from numpy seed."""
+    import numpy as np
+    import torch
+
+    from humaniflow_torch.ops import so3_exp
+
+    rng = np.random.default_rng(seed)
+    rot = lambda n: so3_exp(torch.from_numpy(rng.normal(scale=0.6, size=(n, 3)).astype(np.float32)))  # noqa: E731
+    batch = {
+        "proxy": torch.from_numpy(rng.uniform(size=(b, img, img, 18)).astype(np.float32)),
+        "pose_rotmats": rot(b * 23).reshape(b, 23, 3, 3),
+        "glob_rotmats": rot(b),
+        "shape": torch.from_numpy(rng.normal(size=(b, 10)).astype(np.float32)),
+        "joints2D": torch.from_numpy(rng.uniform(0, img, size=(b, 17, 2)).astype(np.float32)),
+        "joints2D_vis": torch.from_numpy((rng.uniform(size=(b, 17)) > 0.2).astype(np.float32)),
+    }
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def check_train_step_against_cpu(cfg):
+    """Phase 11c: one train step on the card against the CPU, same weights,
+    batch and noise (B=2, 64², 2 joint samples)."""
+    import dataclasses
+
+    import torch
+
+    from humaniflow_torch.models import HumaniflowModel, synthetic_smpl
+    from humaniflow_torch.pipelines import make_optimizer, make_train_step
+
+    b, img, nj = 2, 64, 2
+    small = dataclasses.replace(cfg, LOSS=dataclasses.replace(cfg.LOSS, NUM_J2D_SAMPLES=nj))
+    gpu = HumaniflowModel(small.MODEL, generator=torch.Generator().manual_seed(51))
+    cpu = HumaniflowModel(small.MODEL, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    g = torch.Generator().manual_seed(52)
+    noise = (torch.randn((b, nj, 10), generator=g), [torch.randn((b, nj, len(p), 3), generator=g) for p in gpu.levels])
+    metrics = {}
+    for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        smpl = synthetic_smpl(num_verts=V, device=dev)
+        step = make_train_step(model, smpl, small.LOSS, make_optimizer(model, small), img_wh=img)
+        metrics[dev] = step(_train_batch(b, img, 53, dev), noise=(noise[0].to(dev), [z.to(dev) for z in noise[1]]))
+    worst_loss = max(abs(float(metrics["cuda"][k]) - float(metrics["cpu"][k])) / abs(float(metrics["cpu"][k]))
+                     for k in ("pose_nll", "shape_nll", "joints2D", "glob_rotmats", "total"))
+    worst_grad, worst_name = 0.0, None
+    for (name, p), q in zip(gpu.named_parameters(), cpu.parameters()):
+        rel = float((p.grad.cpu() - q.grad).abs().max() / q.grad.abs().max().clamp(min=1e-30))
+        if rel > worst_grad:
+            worst_grad, worst_name = rel, name
+    print(f"train step on GPU vs CPU (B={b}, {img}², {nj} joint samples): loss terms within {worst_loss:.3e} "
+          f"relative, gradients within {worst_grad:.3e} of each tensor's largest ({worst_name})")
+    if not (worst_loss <= LOSS_RTOL and worst_grad <= GRAD_RTOL):
+        raise AssertionError("the train step on the card disagrees with the CPU")
+
+
+class _StagedDataset:
+    """epoch_batches over one staged batch of poses, textures and
+    backgrounds, n times."""
+
+    def __init__(self, inputs, n):
+        self.inputs, self.n = dict(zip(("pose", "texture", "background"), inputs)), n
+
+    def epoch_batches(self, batch_size):
+        for _ in range(self.n):
+            yield self.inputs
+
+
+def train_full_width(smpl, cfg):
+    """Phase 11d-e: the synthetic batch and train steps at B=72 with the
+    training renderer, then a short train_humaniflow run; returns (counted
+    launches by path, timings)."""
+    import math
+    import os
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from humaniflow_torch.data.augmentation import Draws
+    from humaniflow_torch.models import HumaniflowModel
+    from humaniflow_torch.pipelines import make_optimizer, make_synth_data_fn, make_train_step, train_humaniflow
+    from humaniflow_torch.utils.profiling import wall_ms
+
+    renderer = _training_renderer(cfg)
+    rng = np.random.default_rng(61)
+    host = {
+        "pose": rng.normal(scale=0.3, size=(TRAIN_B, 72)).astype(np.float32),
+        "texture": rng.random(size=(TRAIN_B, 1200, 800, 3), dtype=np.float32),
+        "background": rng.random(size=(TRAIN_B, IMG, IMG, 3), dtype=np.float32),
+    }
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inputs = [torch.from_numpy(host[k]).cuda() for k in ("pose", "texture", "background")]
+    torch.cuda.synchronize()
+    upload_ms = 1e3 * (time.perf_counter() - t0)
+    nbytes = sum(a.nbytes for a in host.values())
+
+    model = HumaniflowModel(cfg.MODEL, generator=torch.Generator().manual_seed(0))
+    opt = make_optimizer(model, cfg)
+    step = make_train_step(model, smpl, cfg.LOSS, opt, img_wh=IMG)
+    synth = make_synth_data_fn(cfg, smpl, renderer)
+    gen = torch.Generator("cuda").manual_seed(62)
+    draws = Draws(gen)
+    launches = {}
+
+    _zero_counts()
+    batch = synth(draws, *inputs)
+    launches["synth batch"] = _read_counts()
+    shapes = {"proxy": (TRAIN_B, IMG, IMG, 18), "pose_rotmats": (TRAIN_B, 23, 3, 3), "glob_rotmats": (TRAIN_B, 3, 3),
+              "shape": (TRAIN_B, 10), "joints2D": (TRAIN_B, 17, 2), "joints2D_vis": (TRAIN_B, 17),
+              "rgb_in": (TRAIN_B, IMG, IMG, 3)}
+    for k, shape in shapes.items():
+        if tuple(batch[k].shape) != shape or not bool(torch.isfinite(batch[k]).all()):
+            raise AssertionError(f"synth batch: {k} has shape {tuple(batch[k].shape)} (expected {shape}) or is not finite")
+    if int(batch["binning_overflow"]) != 0:
+        raise AssertionError(f"the training render dropped {int(batch['binning_overflow'])} faces")
+    print(f"synth batch B={TRAIN_B}: {float(batch['joints2D_vis'].mean()):.3f} of the joints visible, "
+          f"proxy edge share {float((batch['proxy'][..., 0] > 0).float().mean()):.4f}, "
+          f"heatmap max {float(batch['proxy'][..., 1:].max()):.3f}")
+
+    _zero_counts()
+    losses = []
+    for _ in range(5):
+        b = synth(draws, *inputs)
+        b.pop("rgb_in"), b.pop("binning_overflow")
+        m = step(b, generator=gen)
+        losses.append((float(m["total"]), float(m["nan_skipped"]), float(m["grad_norm"])))
+    launches["train steps x5 (synth + step)"] = _read_counts()
+    print("train steps on fresh batches (total, nan_skipped, grad_norm): "
+          + ", ".join(f"({a:.2f}, {b:.0f}, {c:.1f})" for a, b, c in losses))
+    if not all(math.isfinite(a) and b == 0.0 and math.isfinite(c) for a, b, c in losses):
+        raise AssertionError("a train step gave a non-finite loss or was skipped")
+
+    batch.pop("rgb_in"), batch.pop("binning_overflow")
+    same_noise = torch.Generator("cuda")  # the same sample noise every step
+    fixed = [float(step(batch, generator=same_noise.manual_seed(63))["total"]) for _ in range(10)]
+    print(f"10 steps on one fixed batch and noise: loss {fixed[0]:.3f} → {fixed[-1]:.3f}")
+    if not all(math.isfinite(x) for x in fixed) or not fixed[-1] < fixed[0]:
+        raise AssertionError("10 steps on one fixed batch did not lower its loss")
+
+    synth_ms = wall_ms(lambda: synth(draws, *inputs), 3)
+    step_ms = wall_ms(lambda: step(batch, generator=gen), 3)
+    timings = dict(upload_ms=upload_ms, upload_gb=nbytes / 1e9, synth_ms=synth_ms, step_ms=step_ms,
+                   launches_per_step={k: v / 5 for k, v in launches["train steps x5 (synth + step)"].items()})
+    print(f"training B={TRAIN_B} {IMG}² N_j2d={TRAIN_NJ}: upload of poses, textures and backgrounds {upload_ms:.1f} ms "
+          f"({nbytes / 1e9:.3f} GB); synth {synth_ms:.2f} ms, step {step_ms:.2f} ms per batch; "
+          f"{1e3 / (synth_ms + step_ms):.3f} steps/s, {TRAIN_B * 1e3 / (synth_ms + step_ms):.1f} img/s; "
+          f"kernel launches per step {timings['launches_per_step']}")
+
+    with tempfile.TemporaryDirectory() as exp:
+        _zero_counts()
+        params, _ = train_humaniflow(model, smpl, cfg, renderer, _StagedDataset(inputs, 2), _StagedDataset(inputs, 1),
+                                     exp, optimizer=opt, num_epochs=1, steps_per_epoch=2, generator=gen)
+        launches["train_humaniflow (2 train + 1 val steps)"] = _read_counts()
+        with open(os.path.join(exp, "log.pkl"), "rb") as f:
+            history = pickle.load(f)
+        if not os.path.exists(os.path.join(exp, "epoch_000000.pt")):
+            raise AssertionError("train_humaniflow wrote no checkpoint")
+        ckpt = torch.load(os.path.join(exp, "epoch_000000.pt"), map_location="cpu", weights_only=False)
+        if not torch.equal(ckpt["params"]["fc1.weight"], params["fc1.weight"].cpu()):
+            raise AssertionError("the checkpoint does not hold the final parameters")
+    print(f"train_humaniflow, 1 epoch (2 train + 1 val steps): train loss {history['train_losses'][-1]:.3f}, "
+          f"val loss {history['val_losses'][-1]:.3f}, val PVE-SC {history['val_PVE-SC'][-1]:.4f}; checkpoint written")
+    if not all(math.isfinite(h[-1]) for h in (history["train_losses"], history["val_losses"], history["val_PVE-SC"])):
+        raise AssertionError("train_humaniflow recorded a non-finite loss or metric")
+    for path, c in launches.items():
+        if c["raster"] == 0 or c["smpl_verts"] == 0:
+            raise AssertionError(f"{path} did not launch K4 and K2: {c}")
+        if "step" in path and c["smpl_verts_backward"] == 0:
+            raise AssertionError(f"{path} did not run K2's backward: {c}")
+    return launches, timings
 
 
 def main() -> int:
@@ -927,6 +1268,14 @@ def _main() -> int:
               f"TFLOP/s; the rest is upload and 384×288 crops), proxy crops {split['crops']:.2f} ms, "
               f"predict {split['predict']:.2f} ms); {refined} of {B} boxes refined by the keypoint fallback")
         del hrnet
+
+    # ---- phase 11: training
+    _set_fused(False)
+    records["raster"] = check_raster(smpl, cfg)
+    records["smpl_verts_backward"] = check_smpl_backward(smpl)
+    check_train_step_against_cpu(cfg)
+    train_launches, _ = train_full_width(smpl, cfg)
+    path_launches.update(train_launches)
     print(f"launches by path: {path_launches}")
 
     # ---- profiler measurements, last: a profiler session leaves the host
@@ -940,14 +1289,17 @@ def _main() -> int:
               f"{prof['launches']:.0f} kernel launches per batch")
 
     kernels = []
-    sources = {"smpl_verts": "smpl_lbs.cu", "smpl_moments": "smpl_lbs.cu", "coverage": "coverage.cu",
-               "flow_level": "flow_level.cu"}
+    sources = {"smpl_verts": "csrc/smpl_lbs.cu", "smpl_moments": "csrc/smpl_lbs.cu", "coverage": "csrc/coverage.cu",
+               "flow_level": "csrc/flow_level.cu", "raster": "csrc/raster.cu",
+               # K2's gradient: torch adjoints (SMPLVerts.backward), as the JAX package's is XLA
+               "smpl_verts_backward": "models/cuda_lbs.py"}
     for name, source in sources.items():
         rec = dict(records[name])
         extra = {k: rec.pop(k) for k in ("ms_meshes", "plain_ms_meshes", "ms_rows", "ms_per_level", "call_ms",
-                                         "call_ms_per_level", "plain_ms_per_level", "bound_ms_per_level") if k in rec}
+                                         "call_ms_per_level", "plain_ms_per_level", "bound_ms_per_level", "ms_b72",
+                                         "forward_ms_b72", "forward_ms_b576") if k in rec}
         kernels.append(dict(
-            name=name, route="cuda", source=f"humaniflow_torch/csrc/{source}", replaces=rec["replaces"],
+            name=name, route="cuda", source=f"humaniflow_torch/{source}", replaces=rec["replaces"],
             launches=sum(c[name] for c in path_launches.values()), max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None, **extra,
         ))

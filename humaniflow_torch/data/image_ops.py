@@ -1,7 +1,9 @@
-"""Batched image-space ops: bounding boxes and the axis-aligned affine crop.
+"""Batched image-space ops: bounding boxes, background compositing and the
+axis-aligned affine crop with its training jitter.
 
-The PyTorch counterpart of the crop half of `humaniflow_tpu/data/image_ops.py`
-(reference `utils/image_utils.py`).  Images are NHWC tensors, joints (x, y).
+The PyTorch counterpart of `humaniflow_tpu/data/image_ops.py` but for the
+uncrop (reference `utils/image_utils.py`).  Images are NHWC tensors, joints
+(x, y).
 The crop keeps the JAX package's separable resample: the affine is scale and
 translation only, so rows and columns resample independently, each as one
 batched matmul with a (B, out, in) interpolation matrix.  Source coordinates
@@ -59,6 +61,12 @@ def bbox_from_joints2d(joints2d: torch.Tensor, vis: torch.Tensor) -> torch.Tenso
     return torch.stack([y1, x1, y2, x2], dim=-1)
 
 
+def batch_add_rgb_background(backgrounds: torch.Tensor, rgb: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """The rendered person over the background: backgrounds, rgb (B, H, W, 3),
+    seg (B, H, W), person where seg != 0."""
+    return torch.where((seg != 0)[..., None], rgb, backgrounds)
+
+
 def _interp_matrix(src: torch.Tensor, size: int, mode: str):
     """Per-batch 1-D resampling matrix M (B, O, size), M[b, o, i] the weight
     of source index i for output o, and the in-range mask (B, O).  Taps out
@@ -91,15 +99,23 @@ def _separable_sample(img: torch.Tensor, src_xs: torch.Tensor, src_ys: torch.Ten
     return out
 
 
-def _crop_affine_params(bbox_centres, bbox_heights, bbox_widths, output_wh, orig_scale_factor):
-    """Aspect match and scale → the forward affine dst = s·src + t in (x, y)
-    pixel coordinates, scale (B, 2) and translation (B, 2)."""
+def _crop_affine_params(bbox_centres, bbox_heights, bbox_widths, output_wh, orig_scale_factor, draws=None,
+                        delta_scale_range=None, delta_centre_range=None):
+    """Aspect match, scale and jitter → the forward affine dst = s·src + t in
+    (x, y) pixel coordinates, scale (B, 2) and translation (B, 2).  The
+    jitter (a uniform scale delta per box, then a uniform centre shift per
+    coordinate) is drawn from `draws` (data/augmentation.py::Draws)."""
     ow, oh = float(output_wh[0]), float(output_wh[1])
     aspect = oh / ow
     widths = torch.where(bbox_heights > bbox_widths * aspect, bbox_heights / aspect, bbox_widths)
     heights = torch.where(bbox_heights < bbox_widths * aspect, widths * aspect, bbox_heights)
-    heights = heights * orig_scale_factor
-    widths = widths * orig_scale_factor
+    scale_factor = orig_scale_factor
+    if delta_scale_range is not None:
+        scale_factor = scale_factor + draws.uniform(bbox_heights.shape, *delta_scale_range)
+    heights = heights * scale_factor
+    widths = widths * scale_factor
+    if delta_centre_range is not None:
+        bbox_centres = bbox_centres + draws.uniform(bbox_centres.shape, *delta_centre_range)
     scale = torch.stack([ow / widths, oh / heights], dim=-1)
     out_centre = torch.tensor([ow * 0.5, oh * 0.5], dtype=scale.dtype, device=scale.device)
     trans = out_centre - scale * bbox_centres[:, [1, 0]]  # centres are (y, x)
@@ -119,14 +135,20 @@ def batch_crop_affine(
     bbox_whs=None,
     joints2d_vis=None,
     orig_scale_factor: float = 1.2,
+    draws=None,
+    delta_scale_range=None,
+    delta_centre_range=None,
     out_of_frame_pad_val: float = 0.0,
 ) -> dict:
     """Batched crop-and-resize around person bounding boxes.
 
     Images are NHWC (B, H, W, C), seg (B, H, W), joints2d (B, K, 2) as (x, y).
     Without given boxes, they come from bbox_determiner, iuv, seg or the
-    visible joints, in that order.  Returns the crops at output_wh (width,
-    height) and the affine ("crop_scale", "crop_trans")."""
+    visible joints, in that order.  delta_scale_range / delta_centre_range
+    jitter the boxes with numbers from `draws` (the JAX function's `key`).
+    iuv pixels that sample outside the source read out_of_frame_pad_val.
+    Returns the crops at output_wh (width, height) and the affine
+    ("crop_scale", "crop_trans")."""
     if bbox_centres is None:
         if bbox_determiner is not None:
             corners = bbox_from_silhouette(bbox_determiner)
@@ -141,7 +163,8 @@ def batch_crop_affine(
         bbox_heights = bbox_whs
         bbox_widths = bbox_whs
 
-    scale, trans = _crop_affine_params(bbox_centres, bbox_heights, bbox_widths, output_wh, orig_scale_factor)
+    scale, trans = _crop_affine_params(bbox_centres, bbox_heights, bbox_widths, output_wh, orig_scale_factor,
+                                       draws, delta_scale_range, delta_centre_range)
     ow, oh = int(output_wh[0]), int(output_wh[1])
     xs = torch.arange(ow, dtype=torch.float32, device=scale.device)
     ys = torch.arange(oh, dtype=torch.float32, device=scale.device)

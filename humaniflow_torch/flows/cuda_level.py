@@ -18,7 +18,9 @@ vector registers and have no counterpart here.
 `flow_forward_level` computes the twin when the tensors lie on the CPU.  For
 CUDA tensors it launches K5, or raises on a wrong dtype, device, layout,
 shape, flow structure or a width above what the kernel holds; it never falls
-back.  `LAUNCHES` counts its kernel launches.
+back.  K5 has no backward (nor has the JAX kernel): on CUDA it raises when
+grad mode is on and z, ctx or the flow's weights require grad.  `LAUNCHES`
+counts its kernel launches.
 """
 
 import ctypes
@@ -27,7 +29,7 @@ import weakref
 
 import torch
 
-from ..utils.cuda_build import load_library
+from ..utils.cuda_build import load_library, refuse_grad
 from .factory import ConditionalFlow
 from .transforms import ConditionalSplineCoupling, Permute, ScaledRadialTanh
 
@@ -216,6 +218,8 @@ def flow_forward_level(flow: ConditionalFlow, z, ctx, parts):
     _check_tensor("ctx", ctx, device, lead + (p, c_dim))
     _check_tensor("parts", parts, device, (p,), dtype=torch.int64)
     prm = _cached_plan(flow, c_dim, device)
+    if torch.is_grad_enabled():
+        refuse_grad("K5 (flow_level)", z, ctx, *flow.parameters())
     rows = math.prod(lead)
     out = torch.empty_like(z)
     if rows == 0 or p == 0:

@@ -3,11 +3,14 @@
 The PyTorch counterpart of `humaniflow_tpu/flows/factory.py`: base
 Independent-Normal(0, σ²I) → per block [permute → conditional coupling] →
 final radial-tanh compactification, with every part's weights stacked on a
-leading body-part axis.  Only the forward (sampling) direction is here.
+leading body-part axis: the forward pass (sampling) and `log_prob`
+(density, training).
 """
 
+import math
 from typing import Optional, Sequence
 
+import torch
 from torch import nn
 
 from .transforms import ConditionalSplineCoupling, Permute, ScaledRadialTanh
@@ -29,6 +32,19 @@ class ConditionalFlow(nn.Module):
         for t in self.transforms:
             x = t(x, context, parts)
         return x
+
+    def log_prob(self, y, context, parts):
+        """log p(y | context) of points y (..., P, event_dim): the inverse
+        through every transform, the Normal base log-prob minus the summed
+        forward log-dets.  :return: (..., P)."""
+        x = y
+        total_ld = y.new_zeros(y.shape[:-1])
+        for t in reversed(self.transforms):
+            x, ld = t.inverse(x, context, parts)
+            total_ld = total_ld + ld
+        var = self.base_dist_std**2
+        base_lp = torch.sum(-0.5 * (x * x) / var - 0.5 * math.log(2 * math.pi * var), dim=-1)
+        return base_lp - total_ld
 
 
 def create_conditional_norm_flow(

@@ -1,4 +1,5 @@
-"""Monotonic linear-rational spline (LRS) bijection, forward direction.
+"""Monotonic linear-rational spline (LRS) bijection: the forward direction
+(sampling) and the inverse with its log-det (density).
 
 The PyTorch counterpart of `humaniflow_tpu/flows/spline.py` (pyro 1.7's
 `_monotonic_rational_spline` with order='linear').  The JAX package selects
@@ -46,18 +47,12 @@ def _gather(params, idx):
     return torch.gather(params, -1, idx)[..., 0]
 
 
-def monotonic_rational_spline_forward(inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound: float = 3.0):
-    """Elementwise monotonic linear-rational spline, x → y (no log-det: the
-    sampling path does not use it).
-
-    :param inputs: (..., D)
-    :param w_unnorm/h_unnorm/l_unnorm: (..., D, K) unnormalised widths,
-        heights and lambdas; :param d_unnorm: (..., D, K-1) interior
-        derivatives.
-    :return: outputs (..., D); the identity outside [-bound, bound].
-    """
+def _bin_parameters(inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound, inverse):
+    """The parameters of the bin holding each input, searched among the
+    width knots forward and the height knots inverse: (inside, clamped
+    input, bin width, left knot x, lambda, wa, wb, wc, ya, yb, yc)."""
     inside = (inputs >= -bound) & (inputs <= bound)
-    x = torch.clamp(inputs, -bound, bound)
+    v = torch.clamp(inputs, -bound, bound)
 
     widths, cumwidths = _make_knots(w_unnorm, bound, MIN_BIN_WIDTH)
     heights, cumheights = _make_knots(h_unnorm, bound, MIN_BIN_HEIGHT)
@@ -68,7 +63,7 @@ def monotonic_rational_spline_forward(inputs, w_unnorm, h_unnorm, d_unnorm, l_un
 
     lambdas = (1.0 - 2.0 * MIN_LAMBDA) * torch.sigmoid(l_unnorm) + MIN_LAMBDA
 
-    idx = _search_bins(cumwidths, x)
+    idx = _search_bins(cumheights if inverse else cumwidths, v)
     in_w = _gather(widths, idx)
     in_cw = _gather(cumwidths[..., :-1], idx)
     in_ch = _gather(cumheights[..., :-1], idx)
@@ -86,7 +81,22 @@ def monotonic_rational_spline_forward(inputs, w_unnorm, h_unnorm, d_unnorm, l_un
     ya = in_ch
     yb = in_h + in_ch
     yc = ((1.0 - lam) * wa * ya + lam * wb * yb) / ((1.0 - lam) * wa + lam * wb)
+    return inside, v, in_w, in_cw, lam, wa, wb, wc, ya, yb, yc
 
+
+def monotonic_rational_spline_forward(inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound: float = 3.0):
+    """Elementwise monotonic linear-rational spline, x → y (no log-det: the
+    sampling path does not use it).
+
+    :param inputs: (..., D)
+    :param w_unnorm/h_unnorm/l_unnorm: (..., D, K) unnormalised widths,
+        heights and lambdas; :param d_unnorm: (..., D, K-1) interior
+        derivatives.
+    :return: outputs (..., D); the identity outside [-bound, bound].
+    """
+    inside, x, in_w, in_cw, lam, wa, wb, wc, ya, yb, yc = _bin_parameters(
+        inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound, inverse=False
+    )
     theta = (x - in_cw) / in_w
     lo = theta <= lam
     numerator = torch.where(
@@ -100,3 +110,25 @@ def monotonic_rational_spline_forward(inputs, w_unnorm, h_unnorm, d_unnorm, l_un
         wc * (1.0 - theta) + wb * (theta - lam),
     )
     return torch.where(inside, numerator / denominator, inputs)
+
+
+def monotonic_rational_spline_inverse(inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound: float = 3.0):
+    """Inverse of the spline, y → x, with log|dx/dy| (the JAX package's
+    `monotonic_rational_spline(..., inverse=True)`; the caller negates it
+    for the forward log-det).  Arguments as monotonic_rational_spline_forward.
+
+    :return: (outputs (..., D), logabsdet (..., D)); the identity with zero
+        log-det outside [-bound, bound].
+    """
+    inside, y, in_w, in_cw, lam, wa, wb, wc, ya, yb, yc = _bin_parameters(
+        inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound, inverse=True
+    )
+    lo = y <= yc
+    numerator = torch.where(lo, lam * wa * (ya - y), (wc - lam * wb) * y + lam * wb * yb - wc * yc)
+    denominator = torch.where(lo, (wc - wa) * y + wa * ya - wc * yc, (wc - wb) * y + wb * yb - wc * yc)
+    outputs = numerator / denominator * in_w + in_cw
+    deriv_num = torch.where(lo, wa * wc * lam * (yc - ya), wb * wc * (1.0 - lam) * (yb - yc)) * in_w
+    logabsdet = torch.log(torch.clamp(deriv_num, min=1e-38)) - 2.0 * torch.log(
+        torch.clamp(torch.abs(denominator), min=1e-38)
+    )
+    return torch.where(inside, outputs, inputs), torch.where(inside, logabsdet, torch.zeros_like(logabsdet))

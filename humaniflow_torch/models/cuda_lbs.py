@@ -14,7 +14,17 @@ Each wrapper computes its plain PyTorch twin when the tensors lie on the
 CPU.  For CUDA tensors it launches the kernel, or raises on a wrong dtype,
 device, layout or shape; it never falls back.  `LAUNCHES` counts the kernel
 launches of each wrapper, so a run can show that it went through the
-kernels.  The kernels are built with nvcc at first use (utils/cuda_build.py).
+kernels, and the CUDA runs of K2's backward.  The kernels are built with
+nvcc at first use (utils/cuda_build.py).
+
+Gradients.  The kernels compute no gradient, so on CUDA both wrappers raise
+when grad mode is on and an input requires grad, instead of returning
+vertices with no grad_fn.  `SMPLVerts` (`smpl_verts_differentiable`) is K2
+with its gradient, on both devices: its forward is `smpl_verts`, its
+backward the explicit adjoints of the JAX package's custom VJP
+(`_fused_bwd`, `_lbs_bwd`, pallas_lbs.py:364-413), which JAX computes with
+XLA einsums outside any Pallas kernel; here they are float32 einsums and
+matmuls, computed only for the inputs that need them.
 
 Argument layouts (float32): a12 (..., 24, 12) per-joint [R (row-major 9) | t]
 rows, betas (..., NB), pose_feature (..., 207), v_template_cm (3, V),
@@ -25,9 +35,9 @@ import ctypes
 
 import torch
 
-from ..utils.cuda_build import load_library
+from ..utils.cuda_build import load_library, refuse_grad
 
-LAUNCHES = {"smpl_verts": 0, "smpl_moments": 0}
+LAUNCHES = {"smpl_verts": 0, "smpl_moments": 0, "smpl_verts_backward": 0}
 
 NUM_JOINTS = 24
 NUM_POSE_FEATURES = 207
@@ -121,10 +131,12 @@ def _launch(name: str, tensors, out, ints):
 
 def smpl_verts(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):
     """K2: (B, 3, V) skinned vertices.  a12 (B, 24, 12), betas (B, NB),
-    pose_feature (B, 207)."""
+    pose_feature (B, 207).  No gradient on CUDA: use
+    smpl_verts_differentiable for one."""
     args = (a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights)
     if a12.device.type == "cpu":
         return smpl_verts_plain(*args)
+    refuse_grad("K2 (smpl_verts)", *args)
     b = betas.shape[0]
     _check((b,), *args)
     v = v_template_cm.shape[1]
@@ -140,6 +152,7 @@ def smpl_moments(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs
     args = (a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights)
     if a12.device.type == "cpu":
         return smpl_verts_moments_plain(*args)
+    refuse_grad("K1 (smpl_moments)", *args)
     g, n = betas.shape[:2]
     if n == 0:
         raise ValueError("smpl_moments needs at least one sample per group")
@@ -149,3 +162,57 @@ def smpl_moments(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs
     _launch("smpl_moments_launch", args, out, (g, n, v, betas.shape[2]))
     LAUNCHES["smpl_moments"] += 1
     return out
+
+
+def smpl_verts_backward(grad, needs, a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm,
+                        lbs_weights):
+    """Adjoints of the (B, 3, V) vertices with cotangent `grad` (B, 3, V) for
+    the seven inputs of smpl_verts, None where needs[i] is False.
+
+    out[b,c,v] = Σ_j W[v,j]·(Σ_i R_j[c,i]·p[b,i,v] + t_j[c]) with the posed
+    vertices p = v_template + shapedirs·β + posedirs·pose_feature
+    (JAX: pallas_lbs.py `_lbs_bwd` and `_fused_bwd`)."""
+    b, v = betas.shape[0], v_template_cm.shape[1]
+    pd_flat = posedirs_cm.reshape(NUM_POSE_FEATURES, 3 * v)
+    t12 = torch.einsum("vj,bjr->brv", lbs_weights, a12)  # (B, 12, V)
+    # dL/dp[b,i,v] = Σ_c t12[b, 3c+i, v]·g[b,c,v]
+    dp = torch.einsum("bciv,bcv->biv", t12[:, :9].reshape(b, 3, 3, v), grad)
+    g12 = None
+    if needs[0] or needs[6]:
+        p = (
+            v_template_cm
+            + torch.einsum("bl,lcv->bcv", betas, shapedirs_cm)
+            + torch.matmul(pose_feature, pd_flat).reshape(b, 3, v)
+        )
+        # G12[b,r,v]: r = 3c+i → g[b,c,v]·p[b,i,v]; r = 9+c → g[b,c,v]
+        g12 = torch.cat([torch.einsum("bcv,biv->bciv", grad, p).reshape(b, 9, v), grad], dim=1)
+    return (
+        torch.einsum("brv,vj->bjr", g12, lbs_weights) if needs[0] else None,
+        torch.einsum("bcv,lcv->bl", dp, shapedirs_cm) if needs[1] else None,
+        torch.matmul(dp.reshape(b, 3 * v), pd_flat.T) if needs[2] else None,
+        dp.sum(dim=0) if needs[3] else None,
+        torch.einsum("bcv,bl->lcv", dp, betas) if needs[4] else None,
+        torch.einsum("bk,bcv->kcv", pose_feature, dp) if needs[5] else None,
+        torch.einsum("brv,bjr->vj", g12, a12) if needs[6] else None,
+    )
+
+
+class SMPLVerts(torch.autograd.Function):
+    """K2 with its gradient: forward `smpl_verts` (the kernel on CUDA, the
+    plain twin on the CPU), backward `smpl_verts_backward`."""
+
+    @staticmethod
+    def forward(ctx, a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):
+        ctx.save_for_backward(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights)
+        return smpl_verts(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad.device.type == "cuda":
+            LAUNCHES["smpl_verts_backward"] += 1
+        return smpl_verts_backward(grad.contiguous(), ctx.needs_input_grad, *ctx.saved_tensors)
+
+
+def smpl_verts_differentiable(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):
+    """K2 with its gradient (SMPLVerts); arguments as smpl_verts."""
+    return SMPLVerts.apply(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights)

@@ -1,5 +1,5 @@
-"""HumaniflowModel for inference: ResNet encoder, shape / global-rotation /
-camera heads and ancestor-conditioned SO(3) flows over the 23 body parts.
+"""HumaniflowModel: ResNet encoder, shape / global-rotation / camera heads
+and ancestor-conditioned SO(3) flows over the 23 body parts.
 
 The PyTorch counterpart of `humaniflow_tpu/models/humaniflow.py`.  Parts
 are grouped by kinematic-tree depth, so the autoregressive pass is 8 part-
@@ -7,6 +7,11 @@ batched flow evaluations; each part's flow and context weights sit on a
 leading part axis and a level selects its rows by index.  Sampling draws
 from an explicit torch.Generator, or takes the base noise from the caller
 (`base_noise`), so that tests can feed the port the numbers JAX drew.
+
+Training: `apply(train=True)` runs the encoder's BatchNorm on batch
+statistics and updates its running ones in place (flax's update, see
+models/resnet.py::BatchNorm); `compute_for_loglik` gives the teacher-forced
+flow contexts of all 23 parts, scored by `pose_log_prob`.
 """
 
 import os
@@ -19,6 +24,7 @@ from torch import nn
 from ..configs.defaults import ModelConfig
 from ..flows import cuda_level
 from ..flows.factory import ConditionalFlow, create_conditional_norm_flow
+from ..flows.so3_flow import SO3FlowDistribution
 from ..ops.rotation import rot6d_to_rotmat
 from ..ops.so3 import so3_exp
 from ..utils.device import resolve_device
@@ -41,9 +47,9 @@ def immediate_parent_to_all_ancestors(parents) -> Dict[int, List[int]]:
 
 
 class HumaniflowModel(nn.Module):
-    """Inference model.  `apply(proxy, num_samples=N, ...)` runs the forward
-    pass with the same options and outputs as the JAX model's `apply`
-    (it takes the place of nn.Module.apply, which this model does not use)."""
+    """The model.  `apply(proxy, num_samples=N, ...)` runs the forward pass
+    with the same options and outputs as the JAX model's `apply` (it takes
+    the place of nn.Module.apply, which this model does not use)."""
 
     def __init__(
         self,
@@ -72,6 +78,7 @@ class HumaniflowModel(nn.Module):
         for part, anc in self.ancestors.items():
             idx[part, : len(anc)] = torch.tensor(anc, dtype=torch.long)
             mask[part, : len(anc)] = 1.0
+        self.register_buffer("all_parts", torch.arange(self.num_bodyparts), persistent=False)
         self.register_buffer("anc_idx", idx, persistent=False)
         self.register_buffer("anc_mask", mask, persistent=False)
         self.register_buffer("init_cam", torch.tensor(INIT_CAM), persistent=False)
@@ -92,6 +99,7 @@ class HumaniflowModel(nn.Module):
             count_bins=nf.NUM_SPLINE_SEGMENTS,
             bound=nf.COMPACT_SUPPORT_RADIUS,
         )
+        self.so3_dist = SO3FlowDistribution(self.flow, support_radius=nf.COMPACT_SUPPORT_RADIUS)
 
         build = resnet18 if cfg.NUM_RESNET_LAYERS == 18 else resnet50
         self.encoder = build(cfg.NUM_IN_CHANNELS)
@@ -189,6 +197,11 @@ class HumaniflowModel(nn.Module):
         so3_buf = isgc.new_zeros(batch_shape + (self.num_bodyparts, 3))
         rot_buf = isgc.new_zeros(batch_shape + (self.num_bodyparts, 3, 3))
         fused = self._fused_level_enabled()
+        if fused and torch.is_grad_enabled():
+            raise RuntimeError(
+                "HFT_FUSED_LEVEL=1 under grad mode: the fused flow level (K5) has no backward, here or in "
+                "the JAX package; train with HFT_FUSED_LEVEL=0, or run inference under torch.no_grad()"
+            )
         for li in range(len(self.levels)):
             parts = getattr(self, f"level_parts_{li}")
             ctx = self._part_contexts(parts, isgc, rot_buf)
@@ -224,8 +237,14 @@ class HumaniflowModel(nn.Module):
         compute_point_est: bool = True,
         num_samples: int = 0,
         use_shape_mode_for_samples: bool = False,
+        compute_for_loglik: bool = False,
+        shape_for_loglik: Optional[torch.Tensor] = None,
+        pose_R_for_loglik: Optional[torch.Tensor] = None,
+        glob_R_for_loglik: Optional[torch.Tensor] = None,
         input_feats: Optional[torch.Tensor] = None,
+        grad_for_pose_point_est: bool = False,
         return_input_feats: bool = False,
+        train: bool = False,
         base_noise: Optional[List[torch.Tensor]] = None,
         shape_noise: Optional[torch.Tensor] = None,
     ):
@@ -234,6 +253,17 @@ class HumaniflowModel(nn.Module):
         :param proxy_input: (B, H, W, 18) NHWC proxy representation.
         :param generator: draws the sampling noise (on the model's device)
             unless base_noise / shape_noise give it.
+        :param compute_for_loglik: also return the teacher-forced flow
+            contexts of all 23 parts, 'pose_flow_contexts_for_loglik'
+            (B, 23, ctx), given the target shape (B, nb), body rotations
+            (B, 23, 3, 3) and global rotation (B, 3, 3); score them with
+            `pose_log_prob`.
+        :param grad_for_pose_point_est: keep the point estimate's gradient
+            (by default it is detached, as in the JAX model).
+        :param train: run the encoder's BatchNorm on batch statistics and
+            update its running statistics (returned as
+            'encoder_batch_stats', state_dict keys → copies); otherwise the
+            encoder runs on its running statistics.
         :param base_noise: per depth level, unscaled standard-normal noise
             (B, num_samples, P_level, 3).
         :param shape_noise: (B, num_samples, num_betas) standard normal, used
@@ -242,7 +272,14 @@ class HumaniflowModel(nn.Module):
         """
         out = {}
         if input_feats is None:
-            input_feats = self.encoder(proxy_input)
+            was_training = self.encoder.training
+            self.encoder.train(train)
+            try:
+                input_feats = self.encoder(proxy_input)
+            finally:
+                self.encoder.train(was_training)
+            if train:
+                out["encoder_batch_stats"] = self.encoder_batch_stats()
         if return_input_feats:
             out["input_feats"] = input_feats
 
@@ -277,16 +314,45 @@ class HumaniflowModel(nn.Module):
             shape_all = torch.cat([shape_mode[:, None], shape_samples], dim=1)
             isgc_all = self._isgc_feats(input_feats, shape_all, glob_r, cam)
             so3_all, rot_all = self._autoregress(isgc_all, base_noise, zero_sample0=True)
-            out["pose_axisangle_point_est"] = so3_all[:, 0]
-            out["pose_rotmats_point_est"] = rot_all[:, 0]
+            so3_pe, rot_pe = so3_all[:, 0], rot_all[:, 0]
+            if not grad_for_pose_point_est:
+                so3_pe, rot_pe = so3_pe.detach(), rot_pe.detach()
+            out["pose_axisangle_point_est"] = so3_pe
+            out["pose_rotmats_point_est"] = rot_pe
             out["pose_rotmats_samples"] = rot_all[:, 1:]
         else:
             if compute_point_est:
                 isgc_pe = self._isgc_feats(input_feats, shape_mode, glob_r, cam)
                 so3_pe, rot_pe = self._autoregress(isgc_pe)
+                if not grad_for_pose_point_est:
+                    so3_pe, rot_pe = so3_pe.detach(), rot_pe.detach()
                 out["pose_axisangle_point_est"] = so3_pe
                 out["pose_rotmats_point_est"] = rot_pe
             if num_samples > 0:
                 isgc_s = self._isgc_feats(input_feats, shape_samples, glob_r, cam)
                 out["pose_rotmats_samples"] = self._autoregress(isgc_s, base_noise)[1]
+
+        if compute_for_loglik:
+            # teacher forcing: the ancestors are the targets, so all 23
+            # parts' contexts come from one pass with no autoregression
+            isgc_ll = self._isgc_feats(input_feats, shape_for_loglik, glob_R_for_loglik, cam)
+            out["pose_flow_contexts_for_loglik"] = self._part_contexts(self.all_parts, isgc_ll, pose_R_for_loglik)
         return out
+
+    def encoder_batch_stats(self) -> Dict[str, torch.Tensor]:
+        """Copies of the encoder's BatchNorm running statistics, keyed as in
+        the model's state_dict."""
+        return {
+            f"encoder.{k}": v.detach().clone()
+            for k, v in self.encoder.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))
+        }
+
+    def pose_log_prob(self, pose_rotmats, contexts):
+        """Per-part SO(3) log-likelihoods under the ancestor-conditioned flows.
+
+        :param pose_rotmats: (B, 23, 3, 3) target rotations.
+        :param contexts: (B, 23, ctx) from apply(compute_for_loglik=True).
+        :return: (B, 23) log-probabilities.
+        """
+        return self.so3_dist.log_prob(pose_rotmats, contexts, self.all_parts)

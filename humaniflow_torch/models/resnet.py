@@ -1,11 +1,13 @@
-"""ResNet image encoder (feature extractor, no FC head), eval mode.
+"""ResNet image encoder (feature extractor, no FC head).
 
 The PyTorch counterpart of `humaniflow_tpu/models/resnet.py`.  Module names
 mirror the JAX package's (conv1, bn1, layer{i}_block{j}, conv1/bn1/...,
 downsample_conv/downsample_bn) so that weights carry across by name
 (utils/convert_jax.py).  The public call takes NHWC, as the JAX encoder
-does, and permutes to NCHW inside.  BatchNorm runs on its running
-statistics (eps 1e-5).  Convolutions run in full float32: cuDNN's TF32 is
+does, and permutes to NCHW inside.  In eval mode BatchNorm runs on its
+running statistics (eps 1e-5); in train mode it normalises with the batch
+statistics and updates the running ones as flax's BatchNorm(momentum=0.9)
+does (see BatchNorm).  Convolutions run in full float32: cuDNN's TF32 is
 switched off around the forward (see fp32_convolutions).
 """
 
@@ -33,8 +35,29 @@ def fp32_convolutions():
         yield
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5)
+FLAX_MOMENTUM = 0.9  # flax BatchNorm: running = 0.9·running + 0.1·batch
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train-mode update follows flax: torch updates
+    running_var with the unbiased batch variance, flax with the biased one
+    (the variance it normalises with).  Train mode normalises with the batch
+    statistics (F.batch_norm) and updates the running statistics itself,
+    outside autograd."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(FLAX_MOMENTUM).add_(mean, alpha=1.0 - FLAX_MOMENTUM)
+            self.running_var.mul_(FLAX_MOMENTUM).add_(var, alpha=1.0 - FLAX_MOMENTUM)
+        return out
+
+
+def _bn(c: int) -> BatchNorm:
+    return BatchNorm(c, eps=1e-5)
 
 
 class BasicBlock(nn.Module):
@@ -115,7 +138,12 @@ class ResNet(nn.Module):
                 m.reset_running_stats()
 
     def forward(self, x):
-        with fp32_convolutions():
+        # oneDNN's CPU convolutions give train-mode gradients ~1e-2 off a
+        # float64 reference (PyTorch's own CPU kernels: 5e-5, as JAX's), so
+        # training on the CPU runs without oneDNN
+        exact_cpu = x.device.type == "cpu" and self.training and torch.is_grad_enabled()
+        no_onednn = torch.backends.mkldnn.flags(enabled=False) if exact_cpu else contextlib.nullcontext()
+        with fp32_convolutions(), no_onednn:
             x = x.permute(0, 3, 1, 2)
             x = F.relu(self.bn1(self.conv1(x)))
             x = F.max_pool2d(x, 3, 2, padding=1)

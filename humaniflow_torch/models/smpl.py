@@ -5,7 +5,8 @@ joint layout: 24 kinematic joints, 21 vertex landmarks, then the extra (9),
 cocoplus (19) and h36m (17) regressed joints, 90 in all.  The vertex pass
 (template + blend shapes + skinning) is kernel K2 and the per-group sample
 moments kernel K1, both in models/cuda_lbs.py; on the CPU their plain twins
-run instead.
+run instead.  `smpl_forward` goes through K2's autograd Function, so
+gradients reach the shape and the rotations on both devices.
 """
 
 import os
@@ -265,7 +266,7 @@ def smpl_forward(model: SMPLModel, betas, body_pose, global_orient, pose2rot: bo
         body_pose = so3_exp(body_pose.reshape(b, 23, 3))
         global_orient = so3_exp(global_orient.reshape(b, 3))
     posed_joints, a12, pose_feature = _kernel_inputs(model, betas, body_pose, global_orient)
-    verts_cm = cuda_lbs.smpl_verts(
+    verts_cm = cuda_lbs.smpl_verts_differentiable(
         a12, betas.contiguous(), pose_feature,
         model.v_template_cm, model.shapedirs_cm, model.posedirs_cm, model.lbs_weights,
     )

@@ -1,6 +1,6 @@
 from .alignment import procrustes_analysis_batch, scale_and_translation_transform_batch
-from .camera import orthographic_project
-from .rotation import aa_rotate_rotmats, batch_rodrigues, rot6d_to_rotmat, rotmat_to_rot6d
+from .camera import orthographic_project, perspective_project
+from .rotation import aa_rotate_rotmats, aa_rotate_translate_points, batch_rodrigues, rot6d_to_rotmat, rotmat_to_rot6d
 from .so3 import (
     sinc,
     so3_exp,
@@ -13,8 +13,10 @@ from .so3 import (
 
 __all__ = [
     "aa_rotate_rotmats",
+    "aa_rotate_translate_points",
     "batch_rodrigues",
     "orthographic_project",
+    "perspective_project",
     "procrustes_analysis_batch",
     "rot6d_to_rotmat",
     "rotmat_to_rot6d",

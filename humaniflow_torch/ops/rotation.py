@@ -1,7 +1,7 @@
 """Rotation-representation conversions (6D, axis-angle, matrix).
 
 The PyTorch counterpart of the parts of `humaniflow_tpu/ops/rotation.py`
-that distribution inference and evaluation use.
+that distribution inference, evaluation and training use.
 """
 
 import torch
@@ -58,3 +58,18 @@ def aa_rotate_rotmats(rotmats: torch.Tensor, axes, angles, rot_mult_order: str =
     rot = so3_exp(r)
     out = torch.matmul(rotmats, rot) if rot_mult_order == "post" else torch.matmul(rot, rotmats)
     return so3_log(out), out
+
+
+def aa_rotate_translate_points(points: torch.Tensor, axes, angles, translations) -> torch.Tensor:
+    """Rotate and translate batched point sets.
+
+    :param points: (B, N, 3)
+    :param axes: (B, 3) or (3,); :param angles: (B, 1) or scalar
+    :param translations: (B, 3) or (3,)
+    """
+    kw = dict(dtype=points.dtype, device=points.device)
+    r = torch.as_tensor(axes, **kw) * torch.as_tensor(angles, **kw)
+    if r.dim() < 2:
+        r = r[None, :].expand(points.shape[0], 3)
+    out = torch.einsum("bij,bkj->bki", so3_exp(r), points)
+    return out + torch.as_tensor(translations, **kw).reshape(-1, 1, 3)

@@ -7,14 +7,21 @@ from .predict import (
 )
 from .predict_hrnet import predict_hrnet_batch
 from .protocols import EVAL_METRICS_3DPW, EVAL_METRICS_SSP3D
+from .train import make_optimizer, make_synth_data_fn, train_humaniflow
+from .train_step import make_train_step, predict_joints2d
 
 __all__ = [
     "EVAL_METRICS_3DPW",
     "EVAL_METRICS_SSP3D",
     "build_proxy_representation",
     "evaluate_humaniflow",
+    "make_optimizer",
     "make_predict_fn",
+    "make_synth_data_fn",
+    "make_train_step",
+    "predict_joints2d",
     "predict_hrnet_batch",
     "predict_humaniflow",
     "save_pred_output",
+    "train_humaniflow",
 ]

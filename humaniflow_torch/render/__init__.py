@@ -1,5 +1,5 @@
-"""Silhouette rendering: the exact coverage scan, kernel K3 and the
-renderer's silhouette path."""
+"""Rendering: the exact scans, kernels K3 (coverage) and K4 (attribute
+rasterizer) and the textured IUV renderer."""
 
 from .renderer import TexturedIUVRenderer, load_densepose_uv_host
 

@@ -21,14 +21,16 @@ dropped, and is 0 for any valid face table.
 
 `coverage` computes the twin when the tensors lie on the CPU.  For CUDA
 tensors it launches K3, or raises on a wrong dtype, device, layout or
-shape; it never falls back.  `LAUNCHES` counts its kernel launches.
+shape; it never falls back.  K3 has no backward: on CUDA `coverage` raises
+when grad mode is on and verts_screen requires grad.  `LAUNCHES` counts its
+kernel launches.
 """
 
 import ctypes
 
 import torch
 
-from ..utils.cuda_build import load_library
+from ..utils.cuda_build import load_library, refuse_grad
 from .rasterizer import chunk_sizes
 
 LAUNCHES = {"coverage": 0}
@@ -145,6 +147,7 @@ def coverage(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int, c
     """
     if verts_screen.device.type == "cpu":
         return coverage_plain(verts_screen, faces, image_size, cull_sign)
+    refuse_grad("K3 (coverage)", verts_screen)
     _check(verts_screen, faces, image_size, cull_sign)
     m, v = verts_screen.shape[:2]
     mask = torch.zeros((m, image_size, image_size), dtype=torch.uint8, device=verts_screen.device)

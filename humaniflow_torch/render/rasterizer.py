@@ -1,14 +1,30 @@
-"""Exact coverage rasterization and the orthographic screen projection: the
-parts of `humaniflow_tpu/render/rasterizer.py` that silhouettes need.
+"""Exact rasterization in plain PyTorch: the counterpart of
+`humaniflow_tpu/render/rasterizer.py`.
 
-`rasterize_coverage` is the JAX package's exact silhouette path (a
-per-pixel scan of every face), in plain PyTorch; it is not kernel K3's twin
-(that is `render/cuda_coverage.py::coverage_plain`).  The z-buffered
-`rasterize`, attribute interpolation and face normals wait for the training
-slice.
+`rasterize` is the JAX package's exact z-buffer scan (the renderer's path
+off the TPU) and `rasterize_coverage` its exact silhouette scan: every pixel
+centre is tested against every face, in chunks.  Neither is a kernel's twin
+(K3's is `render/cuda_coverage.py::coverage_plain`, K4's
+`render/cuda_raster.py::raster_plain`).  Also the orthographic and
+perspective screen projections, barycentric attribute interpolation and
+face normals.
 """
 
+from typing import NamedTuple
+
 import torch
+
+BIG_DEPTH = 1e9
+
+
+class Fragments(NamedTuple):
+    face_idx: torch.Tensor  # (B, H, W) int32, -1 where no face is hit
+    bary: torch.Tensor      # (B, H, W, 3) barycentrics of the hit
+    depth: torch.Tensor     # (B, H, W) depth of the hit, BIG_DEPTH where empty
+
+    @property
+    def mask(self):
+        return self.face_idx >= 0
 
 # Elements of one (meshes, faces, H, W) intermediate; about 8 such float32
 # temporaries are alive at once (~1 GB at this size).
@@ -77,3 +93,85 @@ def project_orthographic_screen(verts: torch.Tensor, cam_wp: torch.Tensor, image
     t = cam_wp[:, None, 1:3]
     xy = (s * (verts[..., :2] + t) + 1.0) * (image_size / 2.0)
     return torch.cat([xy, verts[..., 2:3]], dim=-1)
+
+
+def rasterize(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int, chunk: int = 1024) -> Fragments:
+    """Exact z-buffered rasterization of meshes already in screen space.
+
+    Barycentrics are the JAX scan's: w0, w1 from the edge functions times
+    1/area, w2 = 1 − w0 − w1; a pixel centre is inside when all three are
+    ≥ 0 (either winding).  z = Σ wᵢ·zᵢ; the smallest z below BIG_DEPTH wins,
+    ties going to the lowest face id.
+
+    :param verts_screen: (B, V, 3) — (x_px, y_px, depth); x = column, y = row.
+    :param faces: (F, 3) vertex indices.
+    :param chunk: faces per chunk at most.
+    """
+    b = verts_screen.shape[0]
+    h = w = image_size
+    f = faces.shape[0]
+    dev = verts_screen.device
+    mc, fc = chunk_sizes(b, f, h, w, chunk)
+    gx = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, None, None, :]
+    gy = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[None, None, :, None]
+    faces = faces.to(device=dev, dtype=torch.long)
+    depth = torch.full((b, h, w), BIG_DEPTH, dtype=torch.float32, device=dev)
+    face_idx = torch.full((b, h, w), -1, dtype=torch.int32, device=dev)
+    bary = torch.zeros((b, h, w, 3), dtype=torch.float32, device=dev)
+    for m0 in range(0, b, mc):
+        verts = verts_screen[m0 : m0 + mc]
+        for f0 in range(0, f, fc):
+            tri = verts[:, faces[f0 : f0 + fc]]  # (mc, fc, 3, 3)
+            x0, y0, z0 = (tri[..., 0, k, None, None] for k in range(3))
+            x1, y1, z1 = (tri[..., 1, k, None, None] for k in range(3))
+            x2, y2, z2 = (tri[..., 2, k, None, None] for k in range(3))
+            area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+            valid = torch.abs(area) > 1e-9
+            inv = valid.to(torch.float32) / torch.where(valid, area, torch.ones_like(area))
+            w0 = ((x2 - x1) * (gy - y1) - (y2 - y1) * (gx - x1)) * inv
+            w1 = ((x0 - x2) * (gy - y2) - (y0 - y2) * (gx - x2)) * inv
+            w2 = 1.0 - w0 - w1
+            inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & valid
+            z = torch.where(inside, w0 * z0 + w1 * z1 + w2 * z2, BIG_DEPTH)
+            zmin = z.amin(dim=1)  # (mc, H, W)
+            first = ((z <= zmin[:, None]) & inside).to(torch.uint8).argmax(dim=1, keepdim=True)  # lowest id
+            take = zmin < depth[m0 : m0 + mc]
+            pick = lambda t: torch.take_along_dim(t, first, dim=1)[:, 0]  # noqa: E731
+            cand_bary = torch.stack([pick(w0), pick(w1), pick(w2)], dim=-1)
+            depth[m0 : m0 + mc] = torch.where(take, zmin, depth[m0 : m0 + mc])
+            face_idx[m0 : m0 + mc] = torch.where(take, (first[:, 0] + f0).to(torch.int32), face_idx[m0 : m0 + mc])
+            bary[m0 : m0 + mc] = torch.where(take[..., None], cand_bary, bary[m0 : m0 + mc])
+    return Fragments(face_idx=face_idx, bary=bary, depth=depth)
+
+
+def project_perspective_screen(verts: torch.Tensor, cam_t: torch.Tensor, focal_length: float,
+                               image_size: int) -> torch.Tensor:
+    """Pinhole camera at translation cam_t, principal point at the image
+    centre: (B, V, 3) → (x_px, y_px, camera-space z)."""
+    v = verts + cam_t[:, None, :]
+    z = torch.clamp(v[..., 2:3], min=1e-6)
+    xy = v[..., :2] / z * focal_length + image_size / 2.0
+    return torch.cat([xy, v[..., 2:3]], dim=-1)
+
+
+def interpolate_face_attributes(fragments: Fragments, faces: torch.Tensor, vert_attrs: torch.Tensor) -> torch.Tensor:
+    """Barycentric interpolation of per-vertex attributes at the hit pixels.
+
+    :param vert_attrs: (B, V, D) or shared (V, D).
+    :return: (B, H, W, D), zeros where no face.
+    """
+    fidx = torch.clamp(fragments.face_idx, min=0).long()
+    tri = faces.long()[fidx]  # (B, H, W, 3)
+    if vert_attrs.dim() == 2:
+        attr = vert_attrs[tri]
+    else:
+        attr = vert_attrs[torch.arange(tri.shape[0], device=tri.device)[:, None, None, None], tri]
+    out = torch.einsum("...k,...kd->...d", fragments.bary, attr)
+    return torch.where(fragments.mask[..., None], out, 0.0)
+
+
+def face_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """(B, F, 3) unit face normals."""
+    tri = verts[:, faces.long()]  # (B, F, 3, 3)
+    n = torch.linalg.cross(tri[:, :, 1] - tri[:, :, 0], tri[:, :, 2] - tri[:, :, 0], dim=-1)
+    return n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-12)

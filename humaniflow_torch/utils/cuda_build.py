@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled at first
 use into `build/torch_kernels/lib<name>-<hash>.so` (hash of the source and
 flags, so an edited source is rebuilt).  `build_all` starts one nvcc per
 source, all at once, so that a fresh checkout builds in the time of the
-slowest source.  Nothing here runs at import time.
+slowest source.  Nothing here runs at import time.  `refuse_grad` is the
+check every wrapper of a kernel without a backward makes.
 """
 
 import ctypes
@@ -13,6 +14,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 from ..configs.paths import REPO_ROOT
 
@@ -87,3 +90,14 @@ def load_library(name: str) -> ctypes.CDLL:
             _finish(name, target, proc, tmp)
             lib = _libs[name] = ctypes.CDLL(target)
         return lib
+
+
+def refuse_grad(kernel: str, *tensors):
+    """Raise if grad mode is on and a tensor requires grad: a CUDA kernel
+    without a backward would hand back a result with no grad_fn and drop the
+    gradient without a word."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: an input requires grad under grad mode, and its result would carry "
+            f"no gradient. Run it under torch.no_grad(), or detach the inputs"
+        )

@@ -1,7 +1,9 @@
-"""Where the time of distribution inference and evaluation goes on the card.
+"""Where the time of distribution inference, evaluation and training goes on
+the card.
 
     python -m humaniflow_torch.utils.profiling [--batch 32] [--samples 100] [--fused-level]
     python -m humaniflow_torch.utils.profiling --protocol ssp3d|3dpw [--batch 32] [--fused-level]
+    python -m humaniflow_torch.utils.profiling --train [--batch 72]
 
 Builds the default model (seeded random weights) and synthetic SMPL at 6890
 vertices.  Without --protocol it prints, for the model forward and for the
@@ -22,6 +24,11 @@ protocol (SSP-3D at N=100 with silhouettes, 3DPW at N=10) on synthetic data
 staged on the card: the eval step (proxy, forward, SMPL through K2), the
 silhouettes (DensePose gather, projection, K3), the metrics, and the three
 together; for SSP-3D also K3 alone on the batch's 3,200 sample meshes.
+
+With --train it prints the same for one synthetic-data batch (the training
+renderer: kernel K4, per-face texels, culling) and one train step (forward,
+backward through K2's gradient, Adam) at the default training config, with
+poses, textures and backgrounds staged on the card.
 
 --fused-level sets HFT_FUSED_LEVEL=1 for the run, so that the flow pass
 goes through the fused level kernel K5; run the script with and without it
@@ -170,10 +177,10 @@ def staged_batch(dataset, b: int, device) -> dict:
     return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items() if not isinstance(v, list)}
 
 
-def _print_profiles(programs: dict):
-    walls = {name: wall_ms(fn, 10) for name, fn in programs.items()}
+def _print_profiles(programs: dict, iters: int = 10, top: int = 8):
+    walls = {name: wall_ms(fn, iters) for name, fn in programs.items()}
     for name, fn in programs.items():
-        prof = device_profile(fn)
+        prof = device_profile(fn, iters=min(iters, 5), top=top)
         busy = prof["device_busy_ms"]
         print(f"{name}: wall {walls[name]:.2f} ms, device busy {busy:.2f} ms, "
               f"idle share {1.0 - busy / walls[name]:.3f}, {prof['launches']:.0f} kernel launches per batch")
@@ -233,11 +240,47 @@ def protocol_breakdown(protocol: str, b: int):
     _print_profiles(programs)
 
 
+def train_breakdown(b: int):
+    """Print where one synthetic batch and one train step spend their time."""
+    import torch
+
+    from ..configs import get_humaniflow_cfg_defaults
+    from ..data.augmentation import Draws
+    from ..models import HumaniflowModel, synthetic_smpl
+    from ..pipelines import make_optimizer, make_synth_data_fn, make_train_step
+    from ..render import TexturedIUVRenderer
+
+    cfg = get_humaniflow_cfg_defaults()
+    img = cfg.DATA.PROXY_REP_SIZE
+    model = HumaniflowModel(cfg.MODEL, generator=torch.Generator().manual_seed(0))
+    smpl = synthetic_smpl(num_verts=6890)
+    renderer = TexturedIUVRenderer(
+        img_wh=img, projection_type="perspective", focal_length=cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH,
+        rasterizer="binned", texture_sampling="face", emit_uv=False, binned_cull=True, emit_overflow=True,
+    )
+    gen = torch.Generator("cuda").manual_seed(1)
+    inputs = (0.3 * torch.randn((b, 72), generator=gen, device="cuda"),
+              torch.rand((b, 1200, 800, 3), generator=gen, device="cuda"),
+              torch.rand((b, img, img, 3), generator=gen, device="cuda"))
+    draws = Draws(gen)
+    synth = make_synth_data_fn(cfg, smpl, renderer)
+    step = make_train_step(model, smpl, cfg.LOSS, make_optimizer(model, cfg), img_wh=img)
+    batch = synth(draws, *inputs)
+    batch.pop("rgb_in"), batch.pop("binning_overflow")
+    print(f"training, B={b} {img}² N_j2d={cfg.LOSS.NUM_J2D_SAMPLES} on {torch.cuda.get_device_name(0)}")
+    _print_profiles({
+        "synth_batch": lambda: synth(draws, *inputs),
+        "train_step": lambda: step(batch, generator=gen),
+        "synth_and_step": lambda: step(synth(draws, *inputs), generator=gen),
+    }, iters=3, top=15)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--batch", type=int, default=32)
+    parser.add_argument("--batch", type=int, default=None, help="default 72 with --train, else 32")
     parser.add_argument("--samples", type=int, default=100)
     parser.add_argument("--protocol", choices=("ssp3d", "3dpw"), default=None)
+    parser.add_argument("--train", action="store_true", help="profile one synthetic batch and one train step")
     parser.add_argument("--fused-level", action="store_true",
                         help="run the flow through the fused level kernel (HFT_FUSED_LEVEL=1)")
     args = parser.parse_args(argv)
@@ -249,8 +292,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profiling needs a CUDA device", file=sys.stderr)
         return 1
+    batch = args.batch or (72 if args.train else 32)
     if args.protocol is not None:
-        protocol_breakdown(args.protocol, args.batch)
+        protocol_breakdown(args.protocol, batch)
+        return 0
+    if args.train:
+        train_breakdown(batch)
         return 0
     import torch.nn.functional as F
 
@@ -258,7 +305,7 @@ def main(argv=None) -> int:
     from ..models import HumaniflowModel, smpl_forward, smpl_vertex_moments, synthetic_smpl
     from ..ops.rotation import rot6d_to_rotmat
 
-    b, n = args.batch, args.samples
+    b, n = batch, args.samples
     cfg = get_humaniflow_cfg_defaults()
     model = HumaniflowModel(cfg.MODEL, generator=torch.Generator().manual_seed(0))
     smpl = synthetic_smpl(num_verts=6890)

@@ -50,6 +50,11 @@ def test_port_imports_with_jax_blocked():
         "import humaniflow_torch.flows.cuda_level, humaniflow_torch.models.hrnet\n"
         "import humaniflow_torch.pipelines.predict_hrnet, humaniflow_torch.utils.load_reference\n"
         "import humaniflow_torch.cli.run_predict\n"
+        "import humaniflow_torch.render.cuda_raster, humaniflow_torch.flows.so3_flow\n"
+        "import humaniflow_torch.pipelines.train, humaniflow_torch.pipelines.train_step\n"
+        "import humaniflow_torch.data.augmentation, humaniflow_torch.data.joints2d_utils\n"
+        "import humaniflow_torch.losses, humaniflow_torch.metrics.train_metrics\n"
+        "import humaniflow_torch.utils.checkpoints, humaniflow_torch.utils.profiling\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

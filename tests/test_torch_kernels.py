@@ -1,6 +1,8 @@
-"""Kernels K1 (smpl_moments) and K2 (smpl_verts) of csrc/smpl_lbs.cu, K3
-(coverage) of csrc/coverage.cu and K5 (flow_level) of csrc/flow_level.cu
-against their plain PyTorch twins, on an NVIDIA GPU.
+"""Kernels K1 (smpl_moments) and K2 (smpl_verts, with its gradient) of
+csrc/smpl_lbs.cu, K3 (coverage) of csrc/coverage.cu, K4 (raster) of
+csrc/raster.cu and K5 (flow_level) of csrc/flow_level.cu against their plain
+PyTorch twins, on an NVIDIA GPU; and the kernels without a backward refusing
+inputs that require grad.
 
 Every test here is marked `cuda` and skips without a card.  The file imports
 nothing of JAX, so that it also runs where JAX is not installed:
@@ -231,3 +233,125 @@ def test_fused_level_model_on_the_card(monkeypatch):
     assert cuda_level.LAUNCHES["flow_level"] == before + len(model.levels)
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=2e-4, msg=k)
+
+
+# K4 (raster): kernel against its plain twin, bit for bit in depth, winners,
+# barycentrics and planes (the same rounded operations in the same order).
+
+
+def _raster_attrs(f, n_lin, n_const, seed, meshes=1):
+    g = torch.Generator("cuda").manual_seed(seed)
+    return torch.randn((meshes, f, 3 * n_lin + n_const), generator=g, device="cuda").contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img", [256, 200])
+@pytest.mark.parametrize("cull_sign", [-1, 0, 1])
+def test_raster_kernel_matches_plain_bit_for_bit(img, cull_sign):
+    _require_cuda()
+    from humaniflow_torch.render import cuda_raster
+
+    posed, faces = _posed_screen(img)
+    ragged, ragged_faces = _ragged_screen(img)
+    cases = [
+        ("posed, training flags", posed, faces, dict(attrs=_raster_attrs(len(faces), 0, 4, 1, len(posed)),
+                                                      emit_frags=False)),
+        ("posed, frags + z_grads", posed, faces, dict(attrs=_raster_attrs(len(faces), 2, 1, 2), n_lin=2,
+                                                       z_grads=True)),
+        ("posed, no attributes", posed, faces, dict()),
+        ("ragged", ragged, ragged_faces, dict(attrs=_raster_attrs(len(ragged_faces), 1, 2, 3), n_lin=1,
+                                              z_grads=True)),
+    ]
+    for name, sv, f, kw in cases:
+        before = cuda_raster.LAUNCHES["raster"]
+        got = cuda_raster.raster(sv, f, img, cull_sign=cull_sign, **kw)
+        torch.cuda.synchronize()
+        assert cuda_raster.LAUNCHES["raster"] == before + 1
+        want = cuda_raster.raster_plain(sv, f, img, cull_sign=cull_sign, **kw)
+        depth, frags, planes, overflow = got
+        assert torch.equal(depth, want[0]), name
+        assert (frags is None) == (want[1] is None), name
+        if frags is not None:
+            for a, b in zip(frags, want[1]):
+                assert torch.equal(a, b), name
+        assert (planes is None) == (want[2] is None), name
+        if planes is not None:
+            assert torch.equal(planes, want[2]), name
+        assert torch.equal(overflow, want[3]), name
+        assert bool((depth < 1e9).any()), name
+    assert overflow.tolist() == [1, 1]  # the ragged set's out-of-range face
+
+
+@pytest.mark.cuda
+def test_raster_wrapper_rejects_bad_inputs():
+    _require_cuda()
+    from humaniflow_torch.render import cuda_raster
+
+    sv, faces = _ragged_screen(64)
+    attrs = _raster_attrs(len(faces), 0, 2, 0)
+    bad = [
+        (sv.double(), faces, None), (sv, faces.long(), None), (sv, faces.cpu(), None), (sv, faces, attrs.double()),
+        (sv.transpose(0, 1).contiguous().transpose(0, 1), faces, None), (sv, faces, attrs[:, :3].contiguous()),
+        (sv, faces, torch.cat([attrs, attrs, attrs])),
+    ]
+    for v, f, a in bad:
+        with pytest.raises((TypeError, ValueError)):
+            cuda_raster.raster(v, f, 64, attrs=a)
+    with pytest.raises(ValueError):
+        cuda_raster.raster(sv, faces, 64, cull_sign=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [72, 576])
+def test_k2_backward_on_the_card_matches_autograd_of_the_twin(rows):
+    _require_cuda()
+    args = [a.detach().requires_grad_(i in (0, 1, 2)) for i, a in enumerate(_kernel_inputs_cuda((rows,), 6890))]
+    g = torch.randn((rows, 3, 6890), generator=torch.Generator("cuda").manual_seed(3), device="cuda")
+    before = cuda_lbs.LAUNCHES["smpl_verts"]
+    out = cuda_lbs.smpl_verts_differentiable(*args)
+    assert cuda_lbs.LAUNCHES["smpl_verts"] == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, args[:3], g)
+    want = torch.autograd.grad(cuda_lbs.smpl_verts_plain(*args), args[:3], g)
+    for a, w in zip(got, want):
+        assert float((a - w).abs().max() / w.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_refuse_inputs_that_require_grad():
+    """K1, K2's raw wrapper, K3, K4 and K5 raise instead of returning a result
+    with no grad_fn; smpl_forward goes through K2's autograd Function."""
+    _require_cuda()
+    from humaniflow_torch.flows import cuda_level
+    from humaniflow_torch.models import smpl_forward, synthetic_smpl
+    from humaniflow_torch.render import cuda_raster
+
+    args = list(_kernel_inputs_cuda((4,), 256))
+    grad_betas = [a.requires_grad_(True) if i == 1 else a for i, a in enumerate(args)]
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_lbs.smpl_verts(*grad_betas)
+    margs = [a.detach().reshape((2, 2) + a.shape[1:]) if i < 3 else a.detach() for i, a in enumerate(args)]
+    margs[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_lbs.smpl_moments(*margs)
+    sv, faces = _ragged_screen(64)
+    sv.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_coverage.coverage(sv, faces, 64)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_raster.raster(sv, faces, 64)
+    model = _flow_model()
+    z, ctx = _level_inputs_cuda(3, 8, 64, seed=0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_level.flow_forward_level(model.flow, z, ctx, model.level_parts_0)
+    with torch.no_grad():  # the same calls without grad mode run
+        cuda_lbs.smpl_verts(*grad_betas)
+        cuda_raster.raster(sv, faces, 64)
+        cuda_level.flow_forward_level(model.flow, z, ctx, model.level_parts_0)
+
+    smpl = synthetic_smpl(num_verts=6890)
+    betas = torch.zeros((2, 10), device="cuda", requires_grad=True)
+    eye = torch.eye(3, device="cuda")
+    verts = smpl_forward(smpl, betas, eye.expand(2, 23, 3, 3), eye.expand(2, 3, 3))["vertices"]
+    assert verts.grad_fn is not None
+    verts.sum().backward()
+    assert betas.grad is not None and bool(betas.grad.abs().sum() > 0)
