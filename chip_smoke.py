@@ -46,10 +46,24 @@ Phases, each of which raises on failure (exit code != 0):
    (K4, per-face texels, culling): the synthetic batch at B=72 (256², 8
    joint samples), 5 train steps on fresh batches and 10 on one fixed batch
    (its loss must fall), timed (synth, upload, step, img/s), and a short
-   train_humaniflow run (2 train + 1 val steps) writing a checkpoint.
+   train_humaniflow run (2 train + 1 val steps) writing a checkpoint;
+12. hold kernel K6 (tiled_raster) against its plain twin, bit for bit, on 32
+   posed bodies at 256² with the renderer's tile-sorted faces and on
+   hand-made ragged faces at 128² and 384², and time it at B=32;
+13. hold kernel K7 (lbs_skin) against its plain twin at B=37 and B·N=3200
+   (V=6890), and its gradient (LBSSkin) against autograd of the twin, and
+   time both;
+14. the optimise path: from phase 3's predictions, the flow-prior
+   optimisation at full width (B=32, 81 iterations, LR 1e-4) against 2D
+   joints of a ground truth whose init is perturbed (not halted, J2D must
+   fall), a GPU-vs-CPU check of 3 iterations at B=2, then the point-estimate
+   figure (4 views and the T-pose, coloured by uncertainty) and the 18
+   J2D-sorted sample renders through the tiled renderer (K6), each held
+   against the exact-scan renderer (masks and depth on every pixel; colours
+   may differ only where faces tie), timed.
 
-Phases 1-7 and 11 run with the fused level off.  Each path of phases 3, 4,
-6, 7, 9, 10 and 11 is driven with the kernel launch counters
+Phases 1-7 and 11-14 run with the fused level off.  Each path of phases 3, 4,
+6, 7, 9, 10, 11 and 14 is driven with the kernel launch counters
 set to 0 just before it and read just after; launches made to compare a
 kernel with its twin, or to time it, are not counted.  Prints one
 {"kernels": [...]} line, then the card line as nvidia-smi gives it, and last
@@ -86,6 +100,14 @@ LOSS_RTOL = 2e-4  # GPU vs CPU train step: loss terms
 K2_GRAD_RTOL = 1e-5  # K2's backward vs autograd of the twin, relative to the largest gradient
 RASTER_TEST_OPS = 13  # K4 pass 1 per pixel test: w0, w1, w2 (8), z (4), the compare
 RADIAL_OPS = 12  # the radial tanh per row
+TILED_TEST_OPS = 13  # K6 per pixel test: w0, w1 (10), w2 (2), the compare
+LBS_FMAS = 12 * 24 + 12  # K7 per (row, vertex): the 12 transform entries, then 3·(3 + 1)
+LBS_ATOL = 2e-6  # K7 vs plain twin (FMAs against the twin's einsum)
+LBS_GRAD_RTOL = 1e-5  # LBSSkin's backward vs autograd of the twin, relative to the largest gradient
+OPT_STATE_RTOL = 1e-4  # GPU vs CPU optimise: each state tensor, relative to its largest |value|
+OPT_LOSS_RTOL = 2e-4  # GPU vs CPU optimise: loss terms
+TIE_SHARE = 1e-3  # tiled vs exact-scan figures: pixels whose colours differ (ties), of the covered pixels
+VIS_SAMPLES = 18  # J2D-sorted samples rendered (the reference's 3×6 grid)
 UNCROPPED_SIZES = ((480, 640), (720, 540))  # (H, W) of the synthetic uncropped images
 
 
@@ -211,9 +233,9 @@ def check_against_cpu(model, smpl, cfg):
 def _all_counts():
     from humaniflow_torch.flows import cuda_level
     from humaniflow_torch.models import cuda_lbs
-    from humaniflow_torch.render import cuda_coverage, cuda_raster
+    from humaniflow_torch.render import cuda_coverage, cuda_raster, cuda_tiled
 
-    return cuda_lbs.LAUNCHES, cuda_coverage.LAUNCHES, cuda_level.LAUNCHES, cuda_raster.LAUNCHES
+    return cuda_lbs.LAUNCHES, cuda_coverage.LAUNCHES, cuda_level.LAUNCHES, cuda_raster.LAUNCHES, cuda_tiled.LAUNCHES
 
 
 def _zero_counts():
@@ -809,15 +831,16 @@ def check_raster(smpl, cfg):
 
 def check_smpl_backward(smpl):
     """Phase 11b: K2 with its gradient against autograd of its twin at the
-    training rows (B = 72 targets and point estimates, B·N = 576 samples);
-    returns the backward's record."""
+    rows the paths give it (B = 32 in the optimise loop; B = 72 targets and
+    point estimates, B·N = 576 samples in training), and K2's forward time
+    at 3DPW's 320 sample rows; returns the backward's record."""
     import torch
 
     from humaniflow_torch.models import cuda_lbs
     from humaniflow_torch.utils.profiling import cuda_ms
 
     out = {}
-    for rows in (TRAIN_B, TRAIN_B * TRAIN_NJ):
+    for rows in (B, TRAIN_B, TRAIN_B * TRAIN_NJ):
         args = _kernel_args(smpl, (rows,), V, seed=7)
         leaf = [a.detach().requires_grad_(i < 3) for i, a in enumerate(args)]
         grad = torch.randn((rows, 3, V), generator=torch.Generator("cuda").manual_seed(8), device="cuda")
@@ -843,13 +866,23 @@ def check_smpl_backward(smpl):
               f"(bound {bound:.4f} ms, {by}), autograd of the twin (forward + backward) {plain_ms:.4f} ms")
         if not (fwd_err <= VERTS_ATOL and rel <= K2_GRAD_RTOL):
             raise AssertionError(f"K2's gradient disagrees with autograd of its twin at rows={rows}: {rel}")
-        out[rows] = dict(err=err, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_ms=plain_ms, bound=bound, by=by)
+        fwd_bound = _bound_ms(*_work(args, rows * 3 * V, rows, V))[0]
+        out[rows] = dict(err=err, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_ms=plain_ms, bound=bound, by=by,
+                         fwd_bound=fwd_bound)
+    args = _kernel_args(smpl, (10 * B,), V, seed=9)
+    fwd_ms_320 = cuda_ms(lambda: cuda_lbs.smpl_verts(*args), 20)
+    fwd_bound_320 = _bound_ms(*_work(args, 10 * B * 3 * V, 10 * B, V))[0]
+    print(f"K2 forward, rows={10 * B}: {fwd_ms_320:.4f} ms (bound {fwd_bound_320:.4f} ms); at rows={B}: "
+          f"{out[B]['fwd_ms']:.4f} ms (bound {out[B]['fwd_bound']:.4f} ms)")
     b = out[TRAIN_B * TRAIN_NJ]
     return dict(
         name="smpl_verts_backward", replaces="humaniflow_tpu/models/pallas_lbs.py:364",
         max_abs_err=max(o["err"] for o in out.values()), ms=b["bwd_ms"], plain_ms=b["plain_ms"],
         bound_ms=b["bound"], bound_by=b["by"], ms_rows=TRAIN_B * TRAIN_NJ,
-        ms_b72=out[TRAIN_B]["bwd_ms"], forward_ms_b72=out[TRAIN_B]["fwd_ms"], forward_ms_b576=b["fwd_ms"],
+        forward_ms_b320=fwd_ms_320, forward_bound_ms_b320=fwd_bound_320,
+        **{f"{k}_b{rows}": o[v] for rows, o in out.items()
+           for k, v in (("ms", "bwd_ms"), ("bound_ms", "bound"), ("forward_ms", "fwd_ms"),
+                        ("forward_bound_ms", "fwd_bound"))},
     )
 
 
@@ -1025,6 +1058,375 @@ def train_full_width(smpl, cfg):
         if "step" in path and c["smpl_verts_backward"] == 0:
             raise AssertionError(f"{path} did not run K2's backward: {c}")
     return launches, timings
+
+
+def _vis_renderer(rasterizer):
+    """The visualisation renderer (orthographic, 256²) with the given
+    backend; the tiled one must stay tiled on the card."""
+    from humaniflow_torch.render import TexturedIUVRenderer
+
+    renderer = TexturedIUVRenderer(img_wh=IMG, projection_type="orthographic", rasterizer=rasterizer)
+    if renderer.rasterizer != rasterizer:
+        raise AssertionError(f"the {rasterizer} renderer routed to {renderer.rasterizer}")
+    return renderer
+
+
+def _vis_screen(renderer, smpl, b, seed):
+    """DensePose-vertex screen coordinates of b synthetic bodies as the
+    visualisation renders them: poses 0.25·N(0, 1), flipped by the x-axis π
+    rotation, weak-perspective camera (0.9, ±0.05, ±0.05), depth offset 2.5."""
+    import math
+
+    import torch
+
+    from humaniflow_torch.models import smpl_forward
+    from humaniflow_torch.ops import aa_rotate_translate_points, so3_exp
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    x_axis = torch.tensor([1.0, 0.0, 0.0], device="cuda")
+    with torch.inference_mode():
+        pose = so3_exp(0.25 * torch.randn((b, 24, 3), generator=g, device="cuda"))
+        shape = torch.randn((b, 10), generator=g, device="cuda")
+        verts = smpl_forward(smpl, shape, pose[:, 1:], pose[:, 0])["vertices"]
+        verts = aa_rotate_translate_points(verts, x_axis, math.pi, torch.zeros(3, device="cuda"))
+        t = 0.05 * (2 * torch.rand((b, 2), generator=g, device="cuda") - 1)
+        cam_t = torch.cat([t, torch.full((b, 1), 2.5, device="cuda")], dim=-1)
+        return renderer._screen_verts(verts[:, renderer.dp["vertex_map"]], cam_t,
+                                      torch.full((b, 2), 0.9, device="cuda")).contiguous()
+
+
+def _tiled_ragged(img):
+    """Hand-made faces for K6 on two meshes: ordinary, zero-area, off screen,
+    crossing the borders, stretched, with vertices on the culling tiles'
+    borders, a square split along its diagonal (ties on the shared edge), a
+    duplicated face (an exact tie) and a NaN depth, padded to one 64-face
+    chunk with copies of the first face; the second chunk holds two faces
+    with a NaN x and an ordinary face, and is culled everywhere."""
+    import math
+
+    import torch
+
+    v = torch.tensor(
+        [[3.2, 4.1, 0.0], [17.9, 6.3, 0.0], [8.0, 21.7, 0.0],
+         [30.5, 30.5, 0.0], [40.5, 40.5, 0.0], [50.5, 50.5, 0.0],
+         [-90.0, -80.0, 0.0], [-60.0, -85.0, 0.0], [-70.0, -50.0, 0.0],
+         [-20.0, 100.0, 0.0], [img + 30.0, 110.0, 0.0], [img / 2, 150.0, 0.0],
+         [1.5, img - 2.5, 0.0], [img - 1.5, img - 2.0, 0.0], [img / 2, img - 1.0, 0.0],
+         [128.0, 20.0, 1.0], [140.5, 32.0, 1.0], [128.0, 44.0, 1.0],
+         [40.0, 40.0, 1.0], [80.0, 40.0, 1.0], [80.0, 80.0, 1.0], [40.0, 80.0, 1.0],
+         [20.0, 90.0, math.nan], [60.0, 95.0, 0.5], [30.0, 120.0, 0.5],
+         [math.nan, 10.0, 0.0], [20.0, 10.0, 0.0], [15.0, 30.0, 0.0]],
+        device="cuda",
+    )
+    first = [[0, 1, 2], [3, 4, 5], [6, 7, 8], [9, 10, 11], [12, 13, 14]]
+    first += [f[::-1] for f in first] + [[15, 16, 17], [18, 19, 20], [18, 20, 21], [18, 20, 21], [22, 23, 24]]
+    first += [[0, 1, 2]] * (64 - len(first))
+    faces = torch.tensor(first + [[25, 26, 27], [27, 26, 25], [0, 1, 2]], dtype=torch.int32, device="cuda")
+    return torch.stack([v, v + torch.tensor([0.37, 0.37, 0.25], device="cuda")]).contiguous(), faces
+
+
+def _tiled_live_pairs(sv, faces, img):
+    """The (mesh, tile, chunk) triples K6 walks for these inputs: the 64-face
+    chunks whose bounds meet a 32×128 tile (a diagnostic of the culling, not
+    of the work the function needs)."""
+    import torch
+
+    from humaniflow_torch.render.cuda_tiled import BLOCK_COLS, BLOCK_ROWS, _chunk_bounds
+
+    ymin, ymax, xmin, xmax = _chunk_bounds(sv[:, faces.long()], faces.shape[0])
+    row0 = (torch.arange(img // BLOCK_ROWS, device=sv.device) * BLOCK_ROWS).float()[:, None]
+    col0 = (torch.arange(img // BLOCK_COLS, device=sv.device) * BLOCK_COLS).float()[None, :]
+    e = lambda t: t[..., None, None]  # noqa: E731
+    live = ((e(ymax) >= row0) & (e(ymin) <= row0 + BLOCK_ROWS) & (e(xmax) >= col0) & (e(xmin) <= col0 + BLOCK_COLS))
+    return int(live.sum())
+
+
+def check_tiled_raster(smpl):
+    """Phase 12: K6 against its plain twin, bit for bit, and its time at the
+    visualisation batch; returns its record."""
+    import torch
+
+    from humaniflow_torch.render import cuda_tiled
+    from humaniflow_torch.utils.profiling import cuda_ms
+
+    renderer = _vis_renderer("tiled")
+    faces = renderer.dp["faces"]
+    sv = _vis_screen(renderer, smpl, B, seed=71)
+    sorted_faces = faces[cuda_tiled.tile_sort_order(sv[0], faces)].contiguous()
+    cases = [(f"{B} posed bodies, tile-sorted faces", IMG, sv, sorted_faces)]
+    cases += [(f"ragged faces at {img}²", img, *_tiled_ragged(img)) for img in (128, 384)]
+    for name, img, s, f in cases:
+        got = cuda_tiled.rasterize_tiled(s, f, img)
+        torch.cuda.synchronize()
+        want = cuda_tiled.rasterize_tiled_plain(s, f, img)
+        diff = (int((got.face_idx != want.face_idx).sum()) + int((got.depth != want.depth).sum())
+                + int((got.bary != want.bary).sum()))
+        covered = int(want.mask.sum())
+        print(f"K6 tiled_raster, {name}: {diff} differing values, {covered} covered px")
+        if diff or covered == 0:
+            raise AssertionError(f"K6 disagrees with its plain twin ({name})")
+    # the z-buffer's work: the pixels of each finite, non-degenerate face's
+    # widened, clipped box (as K3's and K4's bounds count it); the culling's
+    # live (tile, chunk) pairs are reported beside it
+    tests, kept = _coverage_work(sv, sorted_faces, IMG, 0)
+    live = _tiled_live_pairs(sv, sorted_faces, IMG)
+    pairs = B * -(-faces.shape[0] // cuda_tiled.FACE_CHUNK) * (IMG // 32) * (IMG // 128)
+    flops = TILED_TEST_OPS * tests
+    nbytes = 4 * (sv.numel() + sorted_faces.numel()) + B * IMG * IMG * 4 * 5
+    bound, by = _bound_ms(flops, nbytes)
+    ms = cuda_ms(lambda: cuda_tiled.rasterize_tiled(sv, sorted_faces, IMG), 20)
+    plain_ms = cuda_ms(lambda: cuda_tiled.rasterize_tiled_plain(sv[:2], sorted_faces, IMG), 2)
+    print(f"K6 at B={B}, {IMG}²: {tests:.4e} pixel tests over {kept} kept faces; {live} live (tile, chunk) "
+          f"pairs of {pairs}, "
+          f"{nbytes / 1e6:.1f} MB; {ms:.4f} ms per call against a bound of {bound:.4f} ms ({by}); "
+          f"twin {plain_ms:.2f} ms on 2 meshes")
+    return dict(name="tiled_raster", replaces="humaniflow_tpu/render/pallas_rasterizer.py:41", max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, ms_meshes=B, plain_ms_meshes=2,
+                live_pairs=live, all_pairs=pairs)
+
+
+def check_lbs_skin():
+    """Phase 13: K7 against its plain twin and its gradient against autograd
+    of the twin; returns its record."""
+    import torch
+
+    from humaniflow_torch.models import cuda_lbs
+    from humaniflow_torch.utils.profiling import cuda_ms
+
+    g = torch.Generator("cuda").manual_seed(81)
+    w = torch.softmax(3.0 * torch.randn((V, 24), generator=g, device="cuda"), -1)
+    worst = 0.0
+    for rows in (37, B * N):
+        a12 = 0.5 * torch.randn((rows, 24, 12), generator=g, device="cuda")
+        posed = torch.randn((rows, 3, V), generator=g, device="cuda")
+        got = cuda_lbs.lbs_skin_cm(w, a12, posed)
+        torch.cuda.synchronize()
+        err = float((got - cuda_lbs.lbs_skin_cm_plain(w, a12, posed)).abs().max())
+        worst = max(worst, err)
+        print(f"K7 lbs_skin rows={rows} V={V}: max_abs_err {err:.3e}")
+        if not err <= LBS_ATOL:
+            raise AssertionError(f"K7 disagrees with its plain twin at rows={rows}: {err} > {LBS_ATOL}")
+    leaves = [t.detach().clone().requires_grad_(True) for t in (w, a12[:TRAIN_B], posed[:TRAIN_B])]
+    cot = torch.randn((TRAIN_B, 3, V), generator=g, device="cuda")
+    got = torch.autograd.grad(cuda_lbs.LBSSkin.apply(*leaves), leaves, cot)
+    want = torch.autograd.grad(cuda_lbs.lbs_skin_cm_plain(*leaves), leaves, cot)
+    rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+    print(f"K7 with its gradient (LBSSkin), rows={TRAIN_B}: {rel:.3e} of the largest gradient from autograd of "
+          f"the twin")
+    if not rel <= LBS_GRAD_RTOL:
+        raise AssertionError(f"LBSSkin's gradient disagrees with autograd of the twin: {rel}")
+    rows = B * N
+    flops = 2 * LBS_FMAS * rows * V
+    nbytes = 4 * (2 * posed.numel() + w.numel() + a12.numel())
+    bound, by = _bound_ms(flops, nbytes)
+    ms = cuda_ms(lambda: cuda_lbs.lbs_skin_cm(w, a12, posed), 20)
+    plain_ms = cuda_ms(lambda: cuda_lbs.lbs_skin_cm_plain(w, a12, posed), 5)
+    bwd_ms = cuda_ms(lambda: cuda_lbs.lbs_skin_backward(cot, (True, True, True), *[t.detach() for t in leaves]), 5)
+    print(f"K7 at rows={rows}, V={V}: {ms:.4f} ms against a bound of {bound:.4f} ms ({by}); twin (einsum and FMA "
+          f"chain) {plain_ms:.4f} ms; backward at rows={TRAIN_B} {bwd_ms:.4f} ms")
+    # no one PyTorch call computes K7: its yardstick is the twin's einsum and FMA chain
+    return dict(name="lbs_skin", replaces="humaniflow_tpu/models/pallas_lbs.py:30", max_abs_err=worst, ms=ms,
+                plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound, bound_by=by, ms_rows=rows,
+                backward_ms_b72=bwd_ms, gradient_rel_err=rel)
+
+
+def _optimise_init(pred, smpl, seed, device="cuda"):
+    """Targets and init for the optimise path, from predict's outputs: the
+    ground truth is each image's point estimate (shape mode, pose, global
+    rotation, camera); the target 2D joints are its projected COCO joints
+    (x-flip, weak perspective, pixels); the init is the ground truth with
+    shape + 0.2 and pose + 0.15·N(0, 1); every joint visible."""
+    import math
+
+    import torch
+
+    from humaniflow_torch.data.label_conversions import ALL_JOINTS_TO_COCO_MAP
+    from humaniflow_torch.metrics.train_metrics import undo_keypoint_normalisation
+    from humaniflow_torch.models import smpl_forward
+    from humaniflow_torch.ops import orthographic_project, so3_exp
+
+    b = pred["shape_mode"].shape[0]
+    g = torch.Generator(device).manual_seed(seed)
+    with torch.inference_mode():
+        shape, pose = pred["shape_mode"].to(device), pred["pose_axisangle_point_est"].to(device)
+        glob, cam = pred["glob_rotmat"].to(device), pred["cam_wp"].to(device)
+        flip = so3_exp(torch.tensor([[math.pi, 0.0, 0.0]], device=device))[0]
+        joints = smpl_forward(smpl, shape, so3_exp(pose), glob)["joints"][:, ALL_JOINTS_TO_COCO_MAP]
+        target = undo_keypoint_normalisation(orthographic_project(torch.einsum("ij,bkj->bki", flip, joints), cam),
+                                             IMG)
+        return {
+            "shape": shape + 0.2, "pose_axisangle": pose + 0.15 * torch.randn(pose.shape, generator=g, device=device),
+            "glob_rotmat": glob, "cam_wp": cam, "input_feats": pred["input_feats"].to(device),
+            "joints2D": target, "joints2D_conf": torch.ones((b, 17), device=device),
+        }
+
+
+def check_optimise_against_cpu(model, cfg, init):
+    """GPU against CPU: the optimisation of the first 2 images for 3
+    iterations, same weights and init."""
+    import dataclasses
+
+    from humaniflow_torch.configs import get_optimise_cfg_defaults
+    from humaniflow_torch.models import HumaniflowModel, synthetic_smpl
+    from humaniflow_torch.pipelines import optimise_batch_with_humaniflow_prior
+
+    ocfg = dataclasses.replace(get_optimise_cfg_defaults(), NUM_ITERS=3)
+    cpu_model = HumaniflowModel(cfg.MODEL, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    small = {k: v[:2] for k, v in init.items()}
+    outs = {}
+    for dev, mdl in (("cuda", model), ("cpu", cpu_model)):
+        outs[dev] = optimise_batch_with_humaniflow_prior(mdl, synthetic_smpl(num_verts=V, device=dev), ocfg,
+                                                         {k: v.to(dev) for k, v in small.items()}, img_wh=IMG,
+                                                         device=dev)
+    state = max(float((outs["cuda"][k].cpu() - outs["cpu"][k]).abs().max() / outs["cpu"][k].abs().max())
+                for k in ("pose_axisangle", "glob_axisangle", "shape", "cam_wp"))
+    loss = max(abs(float(outs["cuda"][w][k]) - float(outs["cpu"][w][k])) / abs(float(outs["cpu"][w][k]))
+               for w in ("initial_losses", "final_losses") for k in outs["cpu"][w])
+    print(f"optimise on GPU vs CPU (B=2, 3 iterations): state within {state:.3e} of each tensor's largest, "
+          f"losses within {loss:.3e} relative")
+    if not (state <= OPT_STATE_RTOL and loss <= OPT_LOSS_RTOL):
+        raise AssertionError("the optimisation on the card disagrees with the CPU")
+
+
+class _RecordingRenderer:
+    """Wraps a renderer and keeps every output of every call (on the card)."""
+
+    def __init__(self, renderer):
+        self.renderer, self.outputs = renderer, []
+
+    def __call__(self, *args, **kwargs):
+        out = self.renderer(*args, **kwargs)
+        self.outputs.append(out)
+        return out
+
+
+def _compare_renders(name, tiled_outputs, xla_outputs):
+    """Masks and depth equal on every pixel; IUV and RGB differ only where a
+    tie picked another face, on at most TIE_SHARE of the covered pixels.
+    Returns (differing px, covered px)."""
+    import torch
+
+    differ = covered = 0
+    for a, b in zip(tiled_outputs, xla_outputs, strict=True):
+        if not torch.equal(a["silhouettes"], b["silhouettes"]) or not torch.equal(a["depth_images"],
+                                                                                  b["depth_images"]):
+            raise AssertionError(f"{name}: the tiled render's masks or depth differ from the exact scan's")
+        px = (a["iuv_images"] != b["iuv_images"]).any(-1) | (a["rgb_images"] != b["rgb_images"]).any(-1)
+        differ += int(px.sum())
+        covered += int(b["silhouettes"].sum())
+    print(f"{name}, tiled (K6) vs exact scan: masks and depth equal; IUV or RGB differ on {differ} of {covered} "
+          f"covered px (ties)")
+    if differ > TIE_SHARE * covered or covered == 0:
+        raise AssertionError(f"{name}: {differ} px differ, more than {TIE_SHARE} of {covered} covered px")
+    return differ, covered
+
+
+def optimise_and_visualise(model, smpl, cfg, pred):
+    """Phase 14: the optimise path at full width, then the figures through
+    the tiled renderer against the exact scan; returns (launches by path,
+    timings)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from humaniflow_torch.configs import get_optimise_cfg_defaults
+    from humaniflow_torch.models import smpl_forward
+    from humaniflow_torch.ops import aa_rotate_translate_points, so3_exp
+    from humaniflow_torch.pipelines import make_optimise_fn
+    from humaniflow_torch.utils.profiling import wall_ms
+    from humaniflow_torch.utils.sampling import joints2d_error_sorted_verts_sampling
+    from humaniflow_torch.utils.visualise import (
+        render_point_est_visualisation,
+        render_samples_visualisation,
+        uncertainty_colourmap,
+    )
+
+    ocfg = get_optimise_cfg_defaults()
+    init = _optimise_init(pred, smpl, seed=91)
+    check_optimise_against_cpu(model, cfg, init)
+    optimise = make_optimise_fn(model, smpl, ocfg, img_wh=IMG)
+    launches = {}
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = optimise(init)
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - t0)
+    launches[f"optimise ({ocfg.NUM_ITERS} iterations)"] = counts = _read_counts()
+    first, last = out["initial_losses"], out["final_losses"]
+    print(f"optimise B={B}, {ocfg.NUM_ITERS} iterations, LR {ocfg.LR}: halted {bool(out['halted_on_nan'])}; "
+          + ", ".join(f"{k} {float(first[k]):.4f} → {float(last[k]):.4f}" for k in first)
+          + f"; {loop_ms:.1f} ms ({loop_ms / ocfg.NUM_ITERS:.2f} ms per iteration); kernel launches {counts}")
+    if bool(out["halted_on_nan"]):
+        raise AssertionError("the optimisation halted on a non-finite update")
+    if not all(math.isfinite(float(v)) for w in (first, last) for v in w.values()):
+        raise AssertionError("a loss of the optimisation is not finite")
+    if not float(last["joints2D"]) < float(first["joints2D"]):
+        raise AssertionError("the optimisation did not lower the 2D joint loss")
+    if counts["smpl_verts"] == 0 or counts["smpl_verts_backward"] == 0:
+        raise AssertionError(f"the optimisation did not run K2 and its gradient: {counts}")
+
+    with torch.inference_mode():
+        verts = smpl_forward(smpl, out["shape"], so3_exp(out["pose_axisangle"]), so3_exp(out["glob_axisangle"]))
+        x_axis, zero = torch.tensor([1.0, 0.0, 0.0], device="cuda"), torch.zeros(3, device="cuda")
+        flip = lambda v: aa_rotate_translate_points(v, x_axis, math.pi, zero)  # noqa: E731
+        verts_flipped, tpose_flipped = flip(verts["vertices"]), flip(pred["tpose_verts"])
+        sorted_samples = flip(joints2d_error_sorted_verts_sampling(
+            pred["verts_samples"][0], pred["joints_samples"][0], pred["proxy_rep"][:1, :, :, 1:].permute(0, 3, 1, 2),
+            pred["cam_wp"][:1])[:VIS_SAMPLES])
+    colours = np.stack([uncertainty_colourmap(v) for v in pred["vertex_uncertainty_l2"].cpu().numpy()])
+    figures = {
+        "point-estimate figure": lambda r: render_point_est_visualisation(
+            r, verts_flipped, out["cam_wp"], tpose_vertices=tpose_flipped, vertex_colours=colours),
+        "sample renders": lambda r: render_samples_visualisation(r, sorted_samples, pred["cam_wp"][:1]),
+    }
+    renderers = {name: _vis_renderer(name) for name in ("tiled", "xla")}
+    timings = dict(optimise_ms=loop_ms, optimise_ms_per_iter=loop_ms / ocfg.NUM_ITERS)
+    for fig, draw in figures.items():
+        recorded = {}
+        for name, r in renderers.items():
+            rec = _RecordingRenderer(r)
+            _zero_counts()
+            result = draw(rec)
+            counts = _read_counts()
+            if name == "tiled":
+                launches[f"visualisation: {fig}, tiled"] = counts
+                if counts["tiled_raster"] != len(rec.outputs):
+                    raise AssertionError(f"{fig}: K6 launched {counts['tiled_raster']} times for "
+                                         f"{len(rec.outputs)} renders")
+            recorded[name] = rec.outputs
+            image = result["figure"] if isinstance(result, dict) else result
+            if not np.isfinite(image).all():
+                raise AssertionError(f"{fig} ({name}) is not finite")
+        _compare_renders(fig, recorded["tiled"], recorded["xla"])
+        timings[fig] = {name: wall_ms(lambda: draw(r), 3 if name == "tiled" else 1) for name, r in renderers.items()}
+        print(f"{fig}: tiled (K6) {timings[fig]['tiled']:.2f} ms, exact scan {timings[fig]['xla']:.2f} ms")
+    return launches, timings
+
+
+def profile_optimise(model, smpl, pred):
+    """Device busy ms, launches and the idle share of one optimise iteration
+    (the difference of a 5- and a 1-iteration run)."""
+    import dataclasses
+
+    from humaniflow_torch.configs import get_optimise_cfg_defaults
+    from humaniflow_torch.pipelines import make_optimise_fn
+    from humaniflow_torch.utils.profiling import device_profile, wall_ms
+
+    init = _optimise_init(pred, smpl, seed=91)
+    res = {}
+    for iters in (1, 5):
+        fn = make_optimise_fn(model, smpl, dataclasses.replace(get_optimise_cfg_defaults(), NUM_ITERS=iters),
+                              img_wh=IMG)
+        res[iters] = (wall_ms(lambda: fn(init), 3), device_profile(lambda: fn(init), iters=2))
+    wall = (res[5][0] - res[1][0]) / 4
+    busy = (res[5][1]["device_busy_ms"] - res[1][1]["device_busy_ms"]) / 4
+    launches = (res[5][1]["launches"] - res[1][1]["launches"]) / 4
+    print(f"optimise iteration at B={B}: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+          f"{1.0 - busy / wall:.3f}, {launches:.0f} kernel launches; top kernels of the 5-iteration run "
+          f"{res[5][1]['top_kernels_ms'][:4]}")
 
 
 def main() -> int:
@@ -1276,6 +1678,12 @@ def _main() -> int:
     check_train_step_against_cpu(cfg)
     train_launches, _ = train_full_width(smpl, cfg)
     path_launches.update(train_launches)
+
+    # ---- phases 12-14: K6, K7, and predict → optimise → visualise
+    records["tiled_raster"] = check_tiled_raster(smpl)
+    records["lbs_skin"] = check_lbs_skin()
+    vis_launches, _ = optimise_and_visualise(model, smpl, cfg, pred)
+    path_launches.update(vis_launches)
     print(f"launches by path: {path_launches}")
 
     # ---- profiler measurements, last: a profiler session leaves the host
@@ -1287,21 +1695,26 @@ def _main() -> int:
         prof = device_profile(lambda: model_forward(gen.manual_seed(9)), iters=5)
         print(f"model forward, fused level {'on' if on else 'off'}: device busy {prof['device_busy_ms']:.2f} ms, "
               f"{prof['launches']:.0f} kernel launches per batch")
+    _set_fused(False)
+    profile_optimise(model, smpl, pred)
 
     kernels = []
     sources = {"smpl_verts": "csrc/smpl_lbs.cu", "smpl_moments": "csrc/smpl_lbs.cu", "coverage": "csrc/coverage.cu",
                "flow_level": "csrc/flow_level.cu", "raster": "csrc/raster.cu",
                # K2's gradient: torch adjoints (SMPLVerts.backward), as the JAX package's is XLA
-               "smpl_verts_backward": "models/cuda_lbs.py"}
+               "smpl_verts_backward": "models/cuda_lbs.py",
+               "tiled_raster": "csrc/tiled_raster.cu",
+               # no path calls K7, in the JAX package or here (launches 0)
+               "lbs_skin": "csrc/lbs_skin.cu"}
     for name, source in sources.items():
-        rec = dict(records[name])
-        extra = {k: rec.pop(k) for k in ("ms_meshes", "plain_ms_meshes", "ms_rows", "ms_per_level", "call_ms",
-                                         "call_ms_per_level", "plain_ms_per_level", "bound_ms_per_level", "ms_b72",
-                                         "forward_ms_b72", "forward_ms_b576") if k in rec}
+        rec = records[name]
+        extra = {k: v for k, v in rec.items() if k not in ("name", "replaces", "max_abs_err", "ms", "plain_ms",
+                                                            "bound_ms", "bound_by", "library_ms")}
         kernels.append(dict(
             name=name, route="cuda", source=f"humaniflow_torch/{source}", replaces=rec["replaces"],
             launches=sum(c[name] for c in path_launches.values()), max_abs_err=rec["max_abs_err"], ms=rec["ms"],
-            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None, **extra,
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec.get("library_ms"), **extra,
         ))
     print(json.dumps({"kernels": kernels}))
     print(card)

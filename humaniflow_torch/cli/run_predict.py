@@ -6,13 +6,19 @@
 Person box (optional torchvision detector, else the whole image refined by
 the keypoint-box fallback) → HRNet-W48 keypoints → the square crop of the
 HRNet crop at the proxy size → HuManiFlow distribution inference → SMPL
-meshes and per-vertex uncertainty → one `<image>_pred.npz` per image.  Runs
-on CUDA unless --device names another device; without checkpoints it warns
-and uses seeded random weights.  Images are read with OpenCV.  Setting
-HFT_FUSED_LEVEL=1 runs the flow through the fused level kernel.
+meshes and per-vertex uncertainty → one `<image>_pred.npz` per image.  With
+-V (all of them), -VS, -VU or -VXYZ it also writes visualisations: the
+`<image>_vis.png` point-estimate figure (input crop, four views coloured by
+uncertainty, T-pose), the J2D-error-sorted sample grid `_samples.png`, the
+composite onto the original image `_uncrop.png` and the per-vertex variance
+scatter `_xyz_variance.png`.  Runs on CUDA unless --device names another
+device; without checkpoints it warns and uses seeded random weights.
+Images are read and written with OpenCV.  Setting HFT_FUSED_LEVEL=1 runs
+the flow through the fused level kernel.
 """
 
 import argparse
+import math
 import os
 
 
@@ -34,7 +40,14 @@ def main(argv=None):
                         help="SMPL body model (converted .npz files under the model files directory)")
     parser.add_argument("--joints2Dvisib_threshold", "-T", type=float, default=0.75,
                         help="confidence below which appendage-joint heatmaps are zeroed in the proxy")
+    parser.add_argument("--num_vis_samples", "-NV", type=int, default=8,
+                        help="number of J2D-error-sorted samples in the sample-grid visualisation")
     parser.add_argument("--cfg", type=str, default=None, help="yaml overrides of the default config")
+    parser.add_argument("--visualise", "-V", action="store_true",
+                        help="write all visualisations (point estimate, samples, xyz variance, uncrop)")
+    parser.add_argument("--visualise_samples", "-VS", action="store_true")
+    parser.add_argument("--visualise_uncropped", "-VU", action="store_true")
+    parser.add_argument("--visualise_xyz_variance", "-VXYZ", action="store_true")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
@@ -93,7 +106,7 @@ def main(argv=None):
         bbox_heights=torch.full((n,), float(side), device=device),
         bbox_widths=torch.full((n,), float(side), device=device), orig_scale_factor=1.0,
     )
-    predict_humaniflow(
+    pred = predict_humaniflow(
         model, smpl, cfg, crop["rgb"], crop["joints2d"], hr["joints2Dconfs"], num_samples=args.num_samples,
         save_dir=args.save_dir, fnames=fnames,
         extras={"bbox_centre": hr["bbox_centres"], "bbox_height": hr["bbox_heights"],
@@ -101,6 +114,75 @@ def main(argv=None):
         joints2d_visib_threshold=args.joints2Dvisib_threshold, device=device,
     )
     print(f"Saved predictions for {n} images to {args.save_dir}")
+    vis_samples = args.visualise or args.visualise_samples
+    vis_uncrop = args.visualise or args.visualise_uncropped
+    vis_xyz = args.visualise or args.visualise_xyz_variance
+    if args.visualise or vis_samples or vis_uncrop or vis_xyz:
+        _visualise(args, cfg, pred, crop["rgb"], hr, fnames, vis_samples, vis_uncrop, vis_xyz, device)
+
+
+def _visualise(args, cfg, pred, images, hr, fnames, vis_samples, vis_uncrop, vis_xyz, device):
+    """Write the visualisations that the flags ask for."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from ..ops import aa_rotate_translate_points
+    from ..render import TexturedIUVRenderer
+    from ..utils.sampling import joints2d_error_sorted_verts_sampling
+    from ..utils.visualise import (
+        plot_xyz_vertex_variance,
+        render_point_est_visualisation,
+        render_samples_visualisation,
+        uncertainty_colourmap,
+        uncrop_point_est_visualisation,
+    )
+
+    renderer = TexturedIUVRenderer(img_wh=cfg.DATA.PROXY_REP_SIZE, projection_type="orthographic", device=device)
+    colours = np.stack([uncertainty_colourmap(v) for v in pred["vertex_uncertainty_l2"].cpu().numpy()])
+    x_axis, zero = torch.tensor([1.0, 0.0, 0.0], device=device), torch.zeros(3, device=device)
+    flip = lambda v: aa_rotate_translate_points(v, x_axis, math.pi, zero)  # noqa: E731
+    with torch.inference_mode():
+        verts_flipped = flip(pred["verts_point_est"])
+        tpose_flipped = flip(pred["tpose_verts"])
+    figs = render_point_est_visualisation(renderer, verts_flipped, pred["cam_wp"], input_image=images.cpu().numpy(),
+                                          tpose_vertices=tpose_flipped, vertex_colours=colours)
+    proxy = pred["proxy_rep"]
+    boxes = {k: np.asarray(hr[k]) for k in ("bbox_centres", "bbox_heights", "bbox_widths")}
+    for i, fname in enumerate(fnames):
+        stem = os.path.splitext(fname)[0]
+        cv2.imwrite(os.path.join(args.save_dir, stem + "_vis.png"),
+                    (figs["figure"][i][:, :, ::-1] * 255).astype(np.uint8))
+        if vis_samples:
+            with torch.inference_mode():
+                sorted_verts = joints2d_error_sorted_verts_sampling(
+                    pred["verts_samples"][i], pred["joints_samples"][i], proxy[i, :, :, 1:].permute(2, 0, 1)[None],
+                    pred["cam_wp"][i:i + 1],
+                )[:args.num_vis_samples]
+                sorted_flipped = flip(sorted_verts)
+            nv = sorted_flipped.shape[0]
+            cols = min(nv, 6)
+            grid = render_samples_visualisation(renderer, sorted_flipped, pred["cam_wp"][i:i + 1],
+                                                num_rows=math.ceil(nv / cols), num_cols=cols)
+            cv2.imwrite(os.path.join(args.save_dir, stem + "_samples.png"), (grid[:, :, ::-1] * 255).astype(np.uint8))
+        if vis_xyz:
+            plot_xyz_vertex_variance(verts_flipped[i].cpu().numpy(),
+                                     pred["vertex_uncertainty_directional"][i].cpu().numpy(),
+                                     save_path=os.path.join(args.save_dir, stem + "_xyz_variance.png"))
+        if vis_uncrop:
+            orig = cv2.cvtColor(cv2.imread(os.path.join(args.image_dir, fname)), cv2.COLOR_BGR2RGB)
+            render0 = figs["renders"]["0"][i:i + 1]
+            sil0 = (render0.sum(-1) > 0).astype(np.float32)
+            wh_box = max(boxes["bbox_heights"][i], boxes["bbox_widths"][i])
+            uncropped = uncrop_point_est_visualisation(
+                render0, sil0, boxes["bbox_centres"][i][None], np.asarray([wh_box]),
+                (orig.astype(np.float32) / 255.0)[None], bbox_scale_factor=cfg.DATA.BBOX_SCALE_FACTOR,
+            )
+            cv2.imwrite(os.path.join(args.save_dir, stem + "_uncrop.png"),
+                        (uncropped[0][:, :, ::-1] * 255).astype(np.uint8))
+    done = ["point-est"] + [name for name, on in (("samples", vis_samples), ("xyz variance", vis_xyz),
+                                                   ("uncrop", vis_uncrop)) if on]
+    print(f"Saved visualisations ({', '.join(done)}).")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
-"""SSP-3D and 3DPW evaluation datasets and the batch iterator.
+"""SSP-3D and 3DPW evaluation datasets, the batch iterator and the
+optimise-data loader.
 
-The counterpart of the evaluation part of `humaniflow_tpu/data/datasets.py`:
-host-side numpy code (file IO, decode, crop) emitting uint8 images and
-keypoints; the heatmaps are built on the device by the eval step.  The
-training dataset and the optimise-data loader wait for their slices.
+The counterpart of the evaluation part of `humaniflow_tpu/data/datasets.py`
+and of its `load_opt_initialise_data_from_pred_output`: host-side numpy code
+(file IO, decode, crop) emitting uint8 images and keypoints; the heatmaps
+are built on the device by the eval step.  The training dataset waits for
+the training files.
 """
 
 import os
@@ -177,3 +179,17 @@ def batch_iterator(dataset, batch_size: int) -> Iterator[dict]:
             vals = [it[k] for it in items]
             batch[k] = vals if isinstance(vals[0], str) else np.stack(vals)
         yield batch
+
+
+def load_opt_initialise_data_from_pred_output(pred_image_dir: str, pred_output_dir: str) -> dict:
+    """Stack the per-image `<stem>_pred.npz` dumps of the predict stage
+    (pipelines/predict.py::save_pred_output) for the images of
+    pred_image_dir (.png, .jpg, .jpeg, sorted by name): {"fnames": [...],
+    key: (N, ...) numpy array for every key of the dumps}."""
+    fnames = sorted(f for f in os.listdir(pred_image_dir) if f.endswith((".png", ".jpg", ".jpeg")))
+    arrays = {}
+    for fname in fnames:
+        with np.load(os.path.join(pred_output_dir, os.path.splitext(fname)[0] + "_pred.npz")) as npz:
+            for k in npz.files:
+                arrays.setdefault(k, []).append(npz[k])
+    return {"fnames": fnames, **{k: np.stack(v) for k, v in arrays.items()}}

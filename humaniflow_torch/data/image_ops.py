@@ -1,9 +1,8 @@
-"""Batched image-space ops: bounding boxes, background compositing and the
-axis-aligned affine crop with its training jitter.
+"""Batched image-space ops: bounding boxes, background compositing, the
+axis-aligned affine crop with its training jitter, and its inverse.
 
-The PyTorch counterpart of `humaniflow_tpu/data/image_ops.py` but for the
-uncrop (reference `utils/image_utils.py`).  Images are NHWC tensors, joints
-(x, y).
+The PyTorch counterpart of `humaniflow_tpu/data/image_ops.py` (reference
+`utils/image_utils.py`).  Images are NHWC tensors, joints (x, y).
 The crop keeps the JAX package's separable resample: the affine is scale and
 translation only, so rows and columns resample independently, each as one
 batched matmul with a (B, out, in) interpolation matrix.  Source coordinates
@@ -181,3 +180,28 @@ def batch_crop_affine(
     if joints2d is not None:
         out["joints2d"] = joints2d * scale[:, None, :] + trans[:, None, :]
     return out
+
+
+def batch_uncrop_affine(cropped: torch.Tensor, uncrop_wh: Tuple[int, int], bbox_centres, bbox_heights, bbox_widths,
+                        output_wh: Tuple[int, int], mode: str = "bilinear", pad_val: float = 0.0) -> torch.Tensor:
+    """Inverse of the crop: paste crop-space images back at original-image
+    coordinates.
+
+    :param cropped: (B, oh, ow, C) crop-space images of size output_wh
+        (width, height); bbox_centres (B, 2) as (y, x), bbox_heights and
+        bbox_widths (B,) in original-image pixels.
+    :return: (B, UH, UW, C) at uncrop_wh (width, height); pixels whose source
+        lies outside the crop read pad_val (bilinear: 0).
+    """
+    ow, oh = float(output_wh[0]), float(output_wh[1])
+    # the uncrop affine dst = s·src + t, s = box size / crop size
+    sx = bbox_widths / ow
+    sy = bbox_heights / oh
+    tx = bbox_centres[:, 1] - sx * (ow * 0.5)
+    ty = bbox_centres[:, 0] - sy * (oh * 0.5)
+    uw, uh = int(uncrop_wh[0]), int(uncrop_wh[1])
+    xs = torch.arange(uw, dtype=torch.float32, device=cropped.device)
+    ys = torch.arange(uh, dtype=torch.float32, device=cropped.device)
+    src_xs = (xs[None] + 0.5 - tx[:, None]) / sx[:, None] - 0.5
+    src_ys = (ys[None] + 0.5 - ty[:, None]) / sy[:, None] - 0.5
+    return _separable_sample(cropped, src_xs, src_ys, mode, pad_val)

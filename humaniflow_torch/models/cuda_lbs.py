@@ -1,4 +1,5 @@
-"""Fused SMPL vertex kernels K1 and K2 (csrc/smpl_lbs.cu) and their plain twins.
+"""SMPL vertex kernels K1 and K2 (csrc/smpl_lbs.cu), the skinning kernel K7
+(csrc/lbs_skin.cu), and their plain twins.
 
 The counterpart of `humaniflow_tpu/models/pallas_lbs.py`:
 
@@ -9,6 +10,11 @@ The counterpart of `humaniflow_tpu/models/pallas_lbs.py`:
   `smpl_verts_moments_fused`): the same vertices for G groups of N samples,
   reduced inside the kernel to (Σx, Σx²) over each group, (G, 2, 3, V); the
   (G·N, 3, V) sample vertices never reach memory.
+* K7 `lbs_skin_cm` (TPU: `_lbs_kernel` via `lbs_skin_pallas_cm`): linear
+  blend skinning of channel-major posed vertices (B, 3, V), with its
+  gradient as `LBSSkin`.  No path calls it, in the JAX package (only its
+  test, tests/test_pallas_lbs.py:22) or in the port: the SMPL forward fuses
+  skinning into K1 and K2.
 
 Each wrapper computes its plain PyTorch twin when the tensors lie on the
 CPU.  For CUDA tensors it launches the kernel, or raises on a wrong dtype,
@@ -37,7 +43,7 @@ import torch
 
 from ..utils.cuda_build import load_library, refuse_grad
 
-LAUNCHES = {"smpl_verts": 0, "smpl_moments": 0, "smpl_verts_backward": 0}
+LAUNCHES = {"smpl_verts": 0, "smpl_moments": 0, "smpl_verts_backward": 0, "lbs_skin": 0}
 
 NUM_JOINTS = 24
 NUM_POSE_FEATURES = 207
@@ -107,16 +113,17 @@ def _check(rows_shape, a12, betas, pose_feature, v_template_cm, shapedirs_cm, po
         raise ValueError(f"at most {MAX_BETAS} betas are supported, got {nb}")
 
 
-_ARGTYPES = {
-    "smpl_verts_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    "smpl_moments_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+_LAUNCHERS = {  # C entry point → (csrc source, argument types)
+    "smpl_verts_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "smpl_moments_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "lbs_skin_launch": ("lbs_skin", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
 }
 
 
 def _launcher(name: str):
-    lib = load_library("smpl_lbs")
-    fn = getattr(lib, name)
-    fn.argtypes = _ARGTYPES[name]
+    source, argtypes = _LAUNCHERS[name]
+    fn = getattr(load_library(source), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -164,36 +171,54 @@ def smpl_moments(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs
     return out
 
 
+def lbs_skin_backward(grad, needs, lbs_weights, a12, v_posed_cm):
+    """Adjoints of out[b,c,v] = Σ_j W[v,j]·(Σ_i R_j[c,i]·p[b,i,v] + t_j[c])
+    with cotangent `grad` (B, 3, V): (dW (V, 24), da12 (B, 24, 12),
+    dp (B, 3, V)), None where needs[i] is False (JAX: pallas_lbs.py
+    `_lbs_bwd`).  v_posed_cm is read only for dW and da12."""
+    b, _, v = grad.shape
+    dp = None
+    if needs[2]:
+        t12 = torch.einsum("vj,bjr->brv", lbs_weights, a12)  # (B, 12, V)
+        # dL/dp[b,i,v] = Σ_c t12[b, 3c+i, v]·g[b,c,v]
+        dp = torch.einsum("bciv,bcv->biv", t12[:, :9].reshape(b, 3, 3, v), grad)
+    g12 = None
+    if needs[0] or needs[1]:
+        # G12[b,r,v]: r = 3c+i → g[b,c,v]·p[b,i,v]; r = 9+c → g[b,c,v]
+        g12 = torch.cat([torch.einsum("bcv,biv->bciv", grad, v_posed_cm).reshape(b, 9, v), grad], dim=1)
+    return (
+        torch.einsum("brv,bjr->vj", g12, a12) if needs[0] else None,
+        torch.einsum("brv,vj->bjr", g12, lbs_weights) if needs[1] else None,
+        dp,
+    )
+
+
 def smpl_verts_backward(grad, needs, a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm,
                         lbs_weights):
     """Adjoints of the (B, 3, V) vertices with cotangent `grad` (B, 3, V) for
     the seven inputs of smpl_verts, None where needs[i] is False.
 
-    out[b,c,v] = Σ_j W[v,j]·(Σ_i R_j[c,i]·p[b,i,v] + t_j[c]) with the posed
-    vertices p = v_template + shapedirs·β + posedirs·pose_feature
-    (JAX: pallas_lbs.py `_lbs_bwd` and `_fused_bwd`)."""
+    The vertices are LBS (lbs_skin_backward) of the posed vertices
+    p = v_template + shapedirs·β + posedirs·pose_feature (JAX: pallas_lbs.py
+    `_fused_bwd`)."""
     b, v = betas.shape[0], v_template_cm.shape[1]
     pd_flat = posedirs_cm.reshape(NUM_POSE_FEATURES, 3 * v)
-    t12 = torch.einsum("vj,bjr->brv", lbs_weights, a12)  # (B, 12, V)
-    # dL/dp[b,i,v] = Σ_c t12[b, 3c+i, v]·g[b,c,v]
-    dp = torch.einsum("bciv,bcv->biv", t12[:, :9].reshape(b, 3, 3, v), grad)
-    g12 = None
+    p = None
     if needs[0] or needs[6]:
         p = (
             v_template_cm
             + torch.einsum("bl,lcv->bcv", betas, shapedirs_cm)
             + torch.matmul(pose_feature, pd_flat).reshape(b, 3, v)
         )
-        # G12[b,r,v]: r = 3c+i → g[b,c,v]·p[b,i,v]; r = 9+c → g[b,c,v]
-        g12 = torch.cat([torch.einsum("bcv,biv->bciv", grad, p).reshape(b, 9, v), grad], dim=1)
+    dw, da, dp = lbs_skin_backward(grad, (needs[6], needs[0], any(needs[1:6])), lbs_weights, a12, p)
     return (
-        torch.einsum("brv,vj->bjr", g12, lbs_weights) if needs[0] else None,
+        da,
         torch.einsum("bcv,lcv->bl", dp, shapedirs_cm) if needs[1] else None,
         torch.matmul(dp.reshape(b, 3 * v), pd_flat.T) if needs[2] else None,
         dp.sum(dim=0) if needs[3] else None,
         torch.einsum("bcv,bl->lcv", dp, betas) if needs[4] else None,
         torch.einsum("bk,bcv->kcv", pose_feature, dp) if needs[5] else None,
-        torch.einsum("brv,bjr->vj", g12, a12) if needs[6] else None,
+        dw,
     )
 
 
@@ -216,3 +241,61 @@ class SMPLVerts(torch.autograd.Function):
 def smpl_verts_differentiable(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):
     """K2 with its gradient (SMPLVerts); arguments as smpl_verts."""
     return SMPLVerts.apply(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights)
+
+
+def lbs_skin_cm_plain(lbs_weights, a12, v_posed_cm):
+    """Plain PyTorch twin of K7: (B, 3, V) skinned vertices."""
+    t12 = torch.einsum("vj,bjr->brv", lbs_weights, a12)
+    return torch.stack(
+        [
+            t12[:, 3 * i] * v_posed_cm[:, 0]
+            + t12[:, 3 * i + 1] * v_posed_cm[:, 1]
+            + t12[:, 3 * i + 2] * v_posed_cm[:, 2]
+            + t12[:, 9 + i]
+            for i in range(3)
+        ],
+        dim=1,
+    )
+
+
+def lbs_skin_cm(lbs_weights, a12, v_posed_cm):
+    """K7: (B, 3, V) skinned vertices from lbs_weights (V, 24), a12
+    (B, 24, 12) and channel-major posed vertices v_posed_cm (B, 3, V).  No
+    gradient on CUDA: use LBSSkin.apply for one."""
+    if a12.device.type == "cpu":
+        return lbs_skin_cm_plain(lbs_weights, a12, v_posed_cm)
+    refuse_grad("K7 (lbs_skin_cm)", lbs_weights, a12, v_posed_cm)
+    b, _, v = v_posed_cm.shape
+    expected = {"lbs_weights": (lbs_weights, (v, NUM_JOINTS)), "a12": (a12, (b, NUM_JOINTS, 12)),
+                "v_posed_cm": (v_posed_cm, (b, 3, v))}
+    for name, (t, shape) in expected.items():
+        if t.device != a12.device or t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor on {a12.device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    out = torch.empty((b, 3, v), dtype=torch.float32, device=a12.device)
+    fn = _launcher("lbs_skin_launch")
+    rc = fn(lbs_weights.data_ptr(), a12.data_ptr(), v_posed_cm.data_ptr(), out.data_ptr(), b, v,
+            torch.cuda.current_stream(a12.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lbs_skin_launch failed with CUDA error {rc}")
+    LAUNCHES["lbs_skin"] += 1
+    return out
+
+
+class LBSSkin(torch.autograd.Function):
+    """K7 with its gradient: forward `lbs_skin_cm` (the kernel on CUDA, the
+    plain twin on the CPU), backward `lbs_skin_backward`."""
+
+    @staticmethod
+    def forward(ctx, lbs_weights, a12, v_posed_cm):
+        ctx.save_for_backward(lbs_weights, a12, v_posed_cm)
+        return lbs_skin_cm(lbs_weights, a12, v_posed_cm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return lbs_skin_backward(grad.contiguous(), ctx.needs_input_grad, *ctx.saved_tensors)

@@ -1,4 +1,5 @@
 from .evaluate import evaluate_humaniflow
+from .optimise import make_optimise_fn, optimise_batch_with_humaniflow_prior
 from .predict import (
     build_proxy_representation,
     make_predict_fn,
@@ -15,10 +16,12 @@ __all__ = [
     "EVAL_METRICS_SSP3D",
     "build_proxy_representation",
     "evaluate_humaniflow",
+    "make_optimise_fn",
     "make_optimizer",
     "make_predict_fn",
     "make_synth_data_fn",
     "make_train_step",
+    "optimise_batch_with_humaniflow_prior",
     "predict_joints2d",
     "predict_hrnet_batch",
     "predict_humaniflow",

@@ -1,5 +1,5 @@
-"""Rendering: the exact scans, kernels K3 (coverage) and K4 (attribute
-rasterizer) and the textured IUV renderer."""
+"""Rendering: the exact scans, kernels K3 (coverage), K4 (attribute
+rasterizer) and K6 (tile-culled rasterizer) and the textured IUV renderer."""
 
 from .renderer import TexturedIUVRenderer, load_densepose_uv_host
 

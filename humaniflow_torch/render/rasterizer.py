@@ -39,6 +39,21 @@ def chunk_sizes(num_meshes: int, num_faces: int, h: int, w: int, face_chunk: int
     return mc, fc
 
 
+def _barycentrics(tri: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor):
+    """(w0, w1, w2, valid) of the pixel centres (gx, gy) against the faces
+    tri (M, F, 3, 3): w0, w1 from the edge functions times 1/area,
+    w2 = 1 − w0 − w1, each (M, F, H, W); valid (M, F, 1, 1) is |area| > 1e-9."""
+    x0, y0 = tri[..., 0, 0, None, None], tri[..., 0, 1, None, None]
+    x1, y1 = tri[..., 1, 0, None, None], tri[..., 1, 1, None, None]
+    x2, y2 = tri[..., 2, 0, None, None], tri[..., 2, 1, None, None]
+    area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    valid = torch.abs(area) > 1e-9
+    inv = valid.to(torch.float32) / torch.where(valid, area, torch.ones_like(area))
+    w0 = ((x2 - x1) * (gy - y1) - (y2 - y1) * (gx - x1)) * inv
+    w1 = ((x0 - x2) * (gy - y2) - (y0 - y2) * (gx - x2)) * inv
+    return w0, w1, 1.0 - w0 - w1, valid
+
+
 def rasterize_coverage(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int,
                        chunk: int = 2048) -> torch.Tensor:
     """Coverage-only rasterization: the per-pixel any-face-covers mask.
@@ -65,16 +80,7 @@ def rasterize_coverage(verts_screen: torch.Tensor, faces: torch.Tensor, image_si
         verts = verts_screen[m0 : m0 + mc]
         mask = out[m0 : m0 + mc]
         for f0 in range(0, f, fc):
-            tri = verts[:, faces[f0 : f0 + fc]]  # (mc, fc, 3, 3)
-            x0, y0 = tri[..., 0, 0, None, None], tri[..., 0, 1, None, None]
-            x1, y1 = tri[..., 1, 0, None, None], tri[..., 1, 1, None, None]
-            x2, y2 = tri[..., 2, 0, None, None], tri[..., 2, 1, None, None]
-            area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
-            valid = torch.abs(area) > 1e-9
-            inv = valid.to(torch.float32) / torch.where(valid, area, torch.ones_like(area))
-            w0 = ((x2 - x1) * (gy - y1) - (y2 - y1) * (gx - x1)) * inv
-            w1 = ((x0 - x2) * (gy - y2) - (y0 - y2) * (gx - x2)) * inv
-            w2 = 1.0 - w0 - w1
+            w0, w1, w2, valid = _barycentrics(verts[:, faces[f0 : f0 + fc]], gx, gy)
             inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & valid
             mask |= inside.any(dim=1)
     return out
@@ -95,17 +101,16 @@ def project_orthographic_screen(verts: torch.Tensor, cam_wp: torch.Tensor, image
     return torch.cat([xy, verts[..., 2:3]], dim=-1)
 
 
-def rasterize(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int, chunk: int = 1024) -> Fragments:
-    """Exact z-buffered rasterization of meshes already in screen space.
+def zbuffer_scan(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int, chunk: int = 1024,
+                 live_fn=None) -> Fragments:
+    """The z-buffer scan behind `rasterize`, in chunks over meshes and faces.
 
-    Barycentrics are the JAX scan's: w0, w1 from the edge functions times
-    1/area, w2 = 1 − w0 − w1; a pixel centre is inside when all three are
-    ≥ 0 (either winding).  z = Σ wᵢ·zᵢ; the smallest z below BIG_DEPTH wins,
-    ties going to the lowest face id.
-
-    :param verts_screen: (B, V, 3) — (x_px, y_px, depth); x = column, y = row.
-    :param faces: (F, 3) vertex indices.
-    :param chunk: faces per chunk at most.
+    Per chunk the candidates are the faces whose pixel centre is inside;
+    the smallest candidate z wins, the lowest face id on a tie, and replaces
+    the running winner only when strictly nearer.  With live_fn(m0, m1, ids)
+    → bool (m1 − m0, len(ids), H, W), a candidate must also be live and have
+    z < BIG_DEPTH, so a NaN depth never wins; without it a NaN depth makes
+    its chunk's minimum NaN, and the chunk loses at that pixel (the JAX scan).
     """
     b = verts_screen.shape[0]
     h = w = image_size
@@ -119,29 +124,40 @@ def rasterize(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int, 
     face_idx = torch.full((b, h, w), -1, dtype=torch.int32, device=dev)
     bary = torch.zeros((b, h, w, 3), dtype=torch.float32, device=dev)
     for m0 in range(0, b, mc):
-        verts = verts_screen[m0 : m0 + mc]
+        m1 = min(m0 + mc, b)
         for f0 in range(0, f, fc):
-            tri = verts[:, faces[f0 : f0 + fc]]  # (mc, fc, 3, 3)
-            x0, y0, z0 = (tri[..., 0, k, None, None] for k in range(3))
-            x1, y1, z1 = (tri[..., 1, k, None, None] for k in range(3))
-            x2, y2, z2 = (tri[..., 2, k, None, None] for k in range(3))
-            area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
-            valid = torch.abs(area) > 1e-9
-            inv = valid.to(torch.float32) / torch.where(valid, area, torch.ones_like(area))
-            w0 = ((x2 - x1) * (gy - y1) - (y2 - y1) * (gx - x1)) * inv
-            w1 = ((x0 - x2) * (gy - y2) - (y0 - y2) * (gx - x2)) * inv
-            w2 = 1.0 - w0 - w1
+            ids = torch.arange(f0, min(f0 + fc, f), device=dev)
+            tri = verts_screen[m0:m1][:, faces[ids]]  # (mc, fc, 3, 3)
+            w0, w1, w2, valid = _barycentrics(tri, gx, gy)
+            z = w0 * tri[..., 0, 2, None, None] + w1 * tri[..., 1, 2, None, None] + w2 * tri[..., 2, 2, None, None]
             inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & valid
-            z = torch.where(inside, w0 * z0 + w1 * z1 + w2 * z2, BIG_DEPTH)
+            if live_fn is not None:
+                inside &= live_fn(m0, m1, ids) & (z < BIG_DEPTH)
+            z = torch.where(inside, z, BIG_DEPTH)
             zmin = z.amin(dim=1)  # (mc, H, W)
             first = ((z <= zmin[:, None]) & inside).to(torch.uint8).argmax(dim=1, keepdim=True)  # lowest id
-            take = zmin < depth[m0 : m0 + mc]
+            take = zmin < depth[m0:m1]
             pick = lambda t: torch.take_along_dim(t, first, dim=1)[:, 0]  # noqa: E731
             cand_bary = torch.stack([pick(w0), pick(w1), pick(w2)], dim=-1)
-            depth[m0 : m0 + mc] = torch.where(take, zmin, depth[m0 : m0 + mc])
-            face_idx[m0 : m0 + mc] = torch.where(take, (first[:, 0] + f0).to(torch.int32), face_idx[m0 : m0 + mc])
-            bary[m0 : m0 + mc] = torch.where(take[..., None], cand_bary, bary[m0 : m0 + mc])
+            depth[m0:m1] = torch.where(take, zmin, depth[m0:m1])
+            face_idx[m0:m1] = torch.where(take, (first[:, 0] + f0).to(torch.int32), face_idx[m0:m1])
+            bary[m0:m1] = torch.where(take[..., None], cand_bary, bary[m0:m1])
     return Fragments(face_idx=face_idx, bary=bary, depth=depth)
+
+
+def rasterize(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int, chunk: int = 1024) -> Fragments:
+    """Exact z-buffered rasterization of meshes already in screen space.
+
+    Barycentrics are the JAX scan's: w0, w1 from the edge functions times
+    1/area, w2 = 1 − w0 − w1; a pixel centre is inside when all three are
+    ≥ 0 (either winding).  z = Σ wᵢ·zᵢ; the smallest z below BIG_DEPTH wins,
+    ties going to the lowest face id.
+
+    :param verts_screen: (B, V, 3) — (x_px, y_px, depth); x = column, y = row.
+    :param faces: (F, 3) vertex indices.
+    :param chunk: faces per chunk at most.
+    """
+    return zbuffer_scan(verts_screen, faces, image_size, chunk)
 
 
 def project_perspective_screen(verts: torch.Tensor, cam_t: torch.Tensor, focal_length: float,

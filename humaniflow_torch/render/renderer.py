@@ -4,9 +4,10 @@ Lambert-lit RGB.
 The counterpart of `humaniflow_tpu/render/renderer.py`: the DensePose UV
 tables (`load_densepose_uv_host`, the port's own copy of
 `_densepose_uv_host`) and `TexturedIUVRenderer` with the orthographic and
-perspective cameras, the exact render (`_render`), the attribute-rasterizer
-render (`_render_binned_fused`, kernel K4 on CUDA) and the silhouette path
-(kernel K3 on CUDA).
+perspective cameras, the exact render (`_render`, through the exact scan or
+the tile-culled kernel K6 on CUDA), the attribute-rasterizer render
+(`_render_binned_fused`, kernel K4 on CUDA) and the silhouette path (kernel
+K3 on CUDA).
 """
 
 from dataclasses import dataclass
@@ -20,6 +21,7 @@ from ..configs import paths
 from ..utils.device import resolve_device
 from .cuda_coverage import coverage
 from .cuda_raster import rasterize_with_attrs
+from .cuda_tiled import rasterize_tiled, tile_sort_order
 from .rasterizer import (
     face_normals,
     project_orthographic_screen,
@@ -116,8 +118,10 @@ class TexturedIUVRenderer:
         (render/rasterizer.py::rasterize), as the JAX package does off the
         TPU; "binned" through the attribute rasterizer (`_render_binned_fused`:
         kernel K4 on CUDA when img_wh % 128 == 0, the exact scan otherwise,
-        as the JAX package routes it); "tiled" (the JAX package's tile-culled
-        kernel K6) is not ported yet and raises on CUDA.
+        as the JAX package routes it); "tiled" through the tile-culled
+        rasterizer (`render/cuda_tiled.py`: kernel K6 on CUDA when
+        img_wh % 128 == 0, the exact scan otherwise), with the faces sorted
+        by the screen tile of mesh 0's centroids.
     :param texture_sampling: for the attribute rasterizer, "pixel" (one atlas
         lookup per pixel), "vertex" (one texel per DensePose vertex,
         interpolated) or "face" (one texel per face centroid, lit per face:
@@ -162,8 +166,6 @@ class TexturedIUVRenderer:
         # accelerator at img_wh % 128 == 0, the exact scan everywhere else
         if self.rasterizer != "xla" and (self.device.type == "cpu" or self.img_wh % 128 != 0):
             self.rasterizer = "xla"
-        if self.rasterizer == "tiled":
-            raise NotImplementedError('rasterizer="tiled" needs kernel K6, which is not ported yet')
         host = load_densepose_uv_host(self.uv_mat_path)
         dev = self.device
         self.dp = {
@@ -173,6 +175,18 @@ class TexturedIUVRenderer:
         }
         for k in ("u", "v", "atlas_u", "atlas_v", "face_atlas_u", "face_atlas_v"):
             self.dp[k] = torch.as_tensor(host[k], device=dev)
+
+    def _rasterize(self, screen):
+        """(fragments, faces, face_part) of the exact backends.  "tiled"
+        reorders the faces by the tile of mesh 0's centroids (a stable sort,
+        as jnp.argsort is) and returns them in that order, which every later
+        lookup uses; face_idx indexes the returned faces."""
+        faces, face_part = self.dp["faces"], self.dp["face_part"]
+        if self.rasterizer == "xla":
+            return rasterize(screen, faces, self.img_wh, chunk=self.chunk), faces, face_part
+        order = tile_sort_order(screen[0], faces)
+        faces, face_part = faces[order].contiguous(), face_part[order]
+        return rasterize_tiled(screen, faces, self.img_wh), faces, face_part
 
     def _screen_verts(self, vertices, cam_t=None, orthographic_scale=None):
         """(B, V, 3) vertices → screen coordinates.  Orthographic: the
@@ -211,8 +225,8 @@ class TexturedIUVRenderer:
         if self.rasterizer == "binned":
             return self._render_binned_fused(screen, dp_verts, cam_t, orthographic_scale, textures,
                                              lights_rgb_settings, verts_features, want_rgb)
-        faces = self.dp["faces"].long()
-        frags = rasterize(screen, faces, self.img_wh, chunk=self.chunk)
+        frags, faces, face_part = self._rasterize(screen)
+        faces = faces.long()
         mask = frags.mask
         fidx = torch.clamp(frags.face_idx, min=0).long()  # (B, H, W)
 
@@ -223,7 +237,7 @@ class TexturedIUVRenderer:
         static_px = torch.where(
             mask[..., None], torch.einsum("...k,...kd->...d", frags.bary, tri_static[fidx]), 0.0
         )
-        part = torch.where(mask, self.dp["face_part"][fidx], 0).to(torch.float32)
+        part = torch.where(mask, face_part[fidx], 0).to(torch.float32)
         out = {
             "iuv_images": torch.cat([part[..., None], static_px[..., :2]], dim=-1),
             "depth_images": torch.where(mask, frags.depth, 0.0),

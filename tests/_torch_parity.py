@@ -8,10 +8,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from threadpoolctl import threadpool_limits
 
 from humaniflow_torch.utils.convert_jax import port_key
 
 IMG = 64  # proxy side length for the parity tests
+
+# The suite runs in parallel pytest-xdist workers.  At torch's default of one
+# intra-op thread per core their thread pools oversubscribe the cores, and
+# the port's tests take several times as long, so each worker's OpenMP pool
+# is cut to two threads.  Not through torch.set_num_threads: it also turns
+# MKL's dynamic threading off, after which ResNet-18's train-mode gradients
+# on the CPU came out up to 5e-2 off a float64 reference (torch 2.13).
+threadpool_limits(2, user_api="openmp")
 
 
 def small_cfgs(num_resnet_layers: int = 18):
@@ -102,3 +111,54 @@ def t(a) -> torch.Tensor:
 def rel_err(got, want) -> float:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+
+
+def _reference_humaniflow_state_dict(jparams, jm, scale=1.0):
+    """A reference-format HumaniflowModel state dict from JAX params: the
+    inverse of convert_humaniflow_checkpoint's name map (weights × scale)."""
+    sd = {}
+
+    def put(k, a):
+        sd[k] = torch.from_numpy(np.ascontiguousarray(np.asarray(a) * scale, np.float32))
+
+    enc_p, enc_s = jparams["encoder"]["params"], jparams["encoder"]["batch_stats"]
+
+    def enc_name(mod):
+        if "_block" not in mod:
+            return mod
+        layer, block = mod.split("_block")
+        return f"{layer}.{block}"
+
+    def walk(node_p, node_s, prefix):
+        for name, child in node_p.items():
+            if "kernel" in child:
+                put(f"{prefix}{name.replace('downsample_conv', 'downsample.0')}.weight",
+                    np.transpose(child["kernel"], (3, 2, 0, 1)))
+            elif "scale" in child:
+                ref = f"{prefix}{name.replace('downsample_bn', 'downsample.1')}"
+                put(f"{ref}.weight", child["scale"])
+                put(f"{ref}.bias", child["bias"])
+                put(f"{ref}.running_mean", node_s[name]["mean"])
+                put(f"{ref}.running_var", node_s[name]["var"])
+                sd[f"{ref}.num_batches_tracked"] = torch.tensor(7)
+            else:
+                walk(child, node_s.get(name, {}), f"{prefix}{enc_name(name)}.")
+
+    walk(enc_p, enc_s, "image_encoder.")
+    for port, ref in (("fc1", "fc1"), ("fc_shape", "fc_shape"), ("fc_glob", "fc_glob"), ("fc_cam", "fc_cam"),
+                      ("fc_isgc", "fc_input_shape_glob_cam_feats")):
+        put(f"{ref}.weight", np.asarray(jparams[port]["kernel"]).T)
+        put(f"{ref}.bias", jparams[port]["bias"])
+    for part in range(jm.num_bodyparts):
+        n_in = jm.isgc_dim + 9 * len(jm.ancestors[part])
+        put(f"fc_flow_context.{part}.weight", np.asarray(jparams["fc_flow_context"]["kernel"][part, :n_in]).T)
+        put(f"fc_flow_context.{part}.bias", jparams["fc_flow_context"]["bias"][part])
+    slots = sorted((int(k.split("_")[1]), v) for k, v in jparams["flows"].items() if "hypernet" in v)
+    for m, (_, node) in enumerate(slots):
+        for layer, leaves in node["hypernet"].items():
+            li = int(layer.split("_")[1])
+            for part in range(jm.num_bodyparts):
+                mod = f"pose_so3flow_transform_modules.{part * len(slots) + m}.nn.layers.{li}"
+                put(f"{mod}.weight", np.asarray(leaves["kernel"][part]).T)
+                put(f"{mod}.bias", leaves["bias"][part])
+    return sd

@@ -55,6 +55,8 @@ def test_port_imports_with_jax_blocked():
         "import humaniflow_torch.data.augmentation, humaniflow_torch.data.joints2d_utils\n"
         "import humaniflow_torch.losses, humaniflow_torch.metrics.train_metrics\n"
         "import humaniflow_torch.utils.checkpoints, humaniflow_torch.utils.profiling\n"
+        "import humaniflow_torch.render.cuda_tiled, humaniflow_torch.utils.visualise\n"
+        "import humaniflow_torch.pipelines.optimise, humaniflow_torch.cli.run_optimise\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -63,13 +65,15 @@ def test_port_imports_with_jax_blocked():
 
 
 def _entry_points():
-    from humaniflow_torch.cli import run_predict
-    from humaniflow_torch.configs import get_humaniflow_cfg_defaults
+    from humaniflow_torch.cli import run_optimise, run_predict
+    from humaniflow_torch.configs import get_humaniflow_cfg_defaults, get_optimise_cfg_defaults
     from humaniflow_torch.models import HumaniflowModel, PoseHighResolutionNet, synthetic_smpl
     from humaniflow_torch.pipelines import (
         EVAL_METRICS_3DPW,
         evaluate_humaniflow,
+        make_optimise_fn,
         make_predict_fn,
+        optimise_batch_with_humaniflow_prior,
         predict_hrnet_batch,
         predict_humaniflow,
     )
@@ -91,6 +95,10 @@ def _entry_points():
         "PoseHighResolutionNet": lambda: PoseHighResolutionNet(),
         "predict_hrnet_batch": lambda: predict_hrnet_batch(None, [images[0]]),
         "cli.run_predict": lambda: run_predict.main(["-I", REPO, "-S", REPO]),
+        "make_optimise_fn": lambda: make_optimise_fn(model, smpl, get_optimise_cfg_defaults()),
+        "optimise_batch_with_humaniflow_prior": lambda: optimise_batch_with_humaniflow_prior(
+            model, smpl, get_optimise_cfg_defaults(), {}),
+        "cli.run_optimise": lambda: run_optimise.main(["-I", REPO, "-P", REPO, "-S", REPO, "-C", "weights.tar"]),
     }
 
 
@@ -99,7 +107,7 @@ def _entry_points():
     [
         "predict_humaniflow", "make_predict_fn", "HumaniflowModel", "synthetic_smpl", "SMPLModel.to",
         "evaluate_humaniflow", "TexturedIUVRenderer", "PoseHighResolutionNet", "predict_hrnet_batch",
-        "cli.run_predict",
+        "cli.run_predict", "make_optimise_fn", "optimise_batch_with_humaniflow_prior", "cli.run_optimise",
     ],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(name):

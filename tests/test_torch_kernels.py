@@ -1,8 +1,9 @@
 """Kernels K1 (smpl_moments) and K2 (smpl_verts, with its gradient) of
 csrc/smpl_lbs.cu, K3 (coverage) of csrc/coverage.cu, K4 (raster) of
-csrc/raster.cu and K5 (flow_level) of csrc/flow_level.cu against their plain
-PyTorch twins, on an NVIDIA GPU; and the kernels without a backward refusing
-inputs that require grad.
+csrc/raster.cu, K5 (flow_level) of csrc/flow_level.cu, K6 (tiled_raster) of
+csrc/tiled_raster.cu and K7 (lbs_skin, with its gradient) of
+csrc/lbs_skin.cu against their plain PyTorch twins, on an NVIDIA GPU; and
+the kernels without a backward refusing inputs that require grad.
 
 Every test here is marked `cuda` and skips without a card.  The file imports
 nothing of JAX, so that it also runs where JAX is not installed:
@@ -20,9 +21,12 @@ from humaniflow_torch.render import cuda_coverage
 
 # Kernel against plain twin: 2e-5 m for vertices (float32 sums in another
 # order); moments 1e-5 relative to each moment plane's largest value; K3's
-# masks bit for bit (the same rounded operations in the same order).
+# masks and K6's fragments bit for bit (the same rounded operations in the
+# same order); K7 2e-6 (FMAs against the twin's einsum), its gradient 1e-5
+# of the largest.
 VERT_ATOL = 2e-5
 MOM_RTOL = 1e-5
+LBS_ATOL, LBS_GRAD_RTOL = 2e-6, 1e-5
 
 
 def _require_cuda():
@@ -355,3 +359,100 @@ def test_kernels_without_backward_refuse_inputs_that_require_grad():
     assert verts.grad_fn is not None
     verts.sum().backward()
     assert betas.grad is not None and bool(betas.grad.abs().sum() > 0)
+
+
+def _tiled_ragged(img):
+    """Hand-made faces for K6 on two meshes: those of _ragged_screen with a
+    finite, in-range vertex index, plus faces with vertices on the culling
+    tiles' borders, a square split along its diagonal (pixel centres on the
+    shared edge tie), a duplicated face (an exact tie) and a face with a NaN
+    depth, padded to one 64-face chunk with copies of the first face; the
+    second chunk holds the faces with a NaN x and an ordinary face, and is
+    culled everywhere."""
+    v, faces = _ragged_screen(img)
+    extra = torch.tensor(
+        [[128.0, 20.0, 1.0], [140.5, 32.0, 1.0], [128.0, 44.0, 1.0],  # on x = 128 and y = 32
+         [40.0, 40.0, 1.0], [80.0, 40.0, 1.0], [80.0, 80.0, 1.0], [40.0, 80.0, 1.0],  # the square
+         [20.0, 90.0, math.nan], [60.0, 95.0, 0.5], [30.0, 120.0, 0.5]],  # NaN depth
+        device="cuda",
+    )
+    v = torch.cat([v, torch.stack([extra, extra + torch.tensor([0.0, 0.0, 0.25], device="cuda")])], dim=1)
+    n = 18
+    more = torch.tensor([[n, n + 1, n + 2], [n + 3, n + 4, n + 5], [n + 3, n + 5, n + 6], [n + 3, n + 5, n + 6],
+                         [n + 7, n + 8, n + 9]], dtype=torch.int32, device="cuda")
+    nan_x = torch.tensor([5, 11], device="cuda")  # the faces on the NaN-x vertex, both windings
+    finite = faces[[i for i in range(faces.shape[0] - 1) if i not in (5, 11)]]
+    first = torch.cat([finite, more])
+    first = torch.cat([first, first[:1].expand(64 - first.shape[0], 3)])
+    return v.contiguous(), torch.cat([first, faces[nan_x], faces[:1]]).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img", [128, 256, 384])
+def test_tiled_raster_kernel_matches_plain_bit_for_bit(img):
+    _require_cuda()
+    from humaniflow_torch.render import cuda_tiled
+
+    cases = [_tiled_ragged(img)]
+    if img == 256:
+        sv, faces = _posed_screen(img)
+        cases.append((sv, faces[cuda_tiled.tile_sort_order(sv[0], faces)].contiguous()))
+    for sv, faces in cases:
+        before = cuda_tiled.LAUNCHES["tiled_raster"]
+        got = cuda_tiled.rasterize_tiled(sv, faces, img)
+        torch.cuda.synchronize()
+        assert cuda_tiled.LAUNCHES["tiled_raster"] == before + 1
+        want = cuda_tiled.rasterize_tiled_plain(sv, faces, img)
+        assert torch.equal(got.face_idx, want.face_idx)
+        assert torch.equal(got.depth, want.depth)
+        assert torch.equal(got.bary, want.bary)
+        assert bool(got.mask.any())
+
+
+@pytest.mark.cuda
+def test_tiled_raster_wrapper_rejects_bad_inputs():
+    _require_cuda()
+    from humaniflow_torch.render import cuda_tiled
+
+    sv, faces = _tiled_ragged(128)
+    for bad_sv, bad_faces, size in ((sv.double(), faces, 128), (sv, faces.long(), 128), (sv, faces.cpu(), 128),
+                                    (sv[:, :, :2].contiguous(), faces, 128), (sv, faces, 200), (sv, faces, 96)):
+        with pytest.raises((ValueError, TypeError)):
+            cuda_tiled.rasterize_tiled(bad_sv, bad_faces, size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [37, 3200])
+def test_lbs_skin_kernel_matches_plain(b):
+    _require_cuda()
+    g = torch.Generator("cuda").manual_seed(b)
+    w = torch.softmax(3.0 * torch.randn((6890, 24), generator=g, device="cuda"), -1)
+    a12 = 0.5 * torch.randn((b, 24, 12), generator=g, device="cuda")
+    posed = torch.randn((b, 3, 6890), generator=g, device="cuda")
+    before = cuda_lbs.LAUNCHES["lbs_skin"]
+    got = cuda_lbs.lbs_skin_cm(w, a12, posed)
+    torch.cuda.synchronize()
+    assert cuda_lbs.LAUNCHES["lbs_skin"] == before + 1
+    torch.testing.assert_close(got, cuda_lbs.lbs_skin_cm_plain(w, a12, posed), rtol=0, atol=LBS_ATOL)
+
+
+@pytest.mark.cuda
+def test_lbs_skin_gradient_matches_autograd_of_the_twin():
+    _require_cuda()
+    g = torch.Generator("cuda").manual_seed(5)
+    w = torch.softmax(3.0 * torch.randn((6890, 24), generator=g, device="cuda"), -1).requires_grad_(True)
+    a12 = (0.5 * torch.randn((72, 24, 12), generator=g, device="cuda")).requires_grad_(True)
+    posed = torch.randn((72, 3, 6890), generator=g, device="cuda").requires_grad_(True)
+    cot = torch.randn((72, 3, 6890), generator=g, device="cuda")
+    out = cuda_lbs.LBSSkin.apply(w, a12, posed)
+    got = torch.autograd.grad(out, (w, a12, posed), cot)
+    want = torch.autograd.grad(cuda_lbs.lbs_skin_cm_plain(w, a12, posed), (w, a12, posed), cot)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max() / b.abs().max()) <= LBS_GRAD_RTOL
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_lbs.lbs_skin_cm(w, a12, posed)
+    sv, faces = _tiled_ragged(128)
+    from humaniflow_torch.render import cuda_tiled
+
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_tiled.rasterize_tiled(sv.requires_grad_(True), faces, 128)
