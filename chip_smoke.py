@@ -17,12 +17,18 @@ Phases, each of which raises on failure (exit code != 0):
    against predict's vertex samples drawn with the same noise;
 5. hold kernel K3 (coverage) against its plain twin, bit for bit, on posed
    synthetic bodies and on hand-made ragged faces, at 256² and 200², with
-   and without back-face culling, and time it at the SSP-3D shape;
+   and without back-face culling, and on the cases that reach each branch
+   of the kernel (utils/profiling.py::coverage_cases: a face over the
+   whole image, all faces culled, band borders at 1024², sizes 33 and 200,
+   M = 1 and 257, many large boxes, a NaN vertex, out-of-range indices),
+   and time it at 3,232 posed bodies;
 6. run the SSP-3D protocol through evaluate_humaniflow (N=100, silhouette
    and per-sample silhouette IOU, B=32, 256²), check the point-estimate
-   silhouettes of K3 against the exact scan, check GPU evaluation with
-   exact silhouettes against CPU evaluation on a small input, and time it
-   (img/s, and the split into eval step, silhouettes and metrics);
+   silhouettes of K3 against the exact scan, time K3 in the protocol's own
+   launches (12 × 256, 128 and 32 meshes a batch) beside their bounds,
+   check GPU evaluation with exact silhouettes against CPU evaluation on a
+   small input, and time it (img/s, and the split into eval step,
+   silhouettes and metrics);
 7. run the 3DPW protocol (N=10, B=32) and time it;
 8. hold kernel K5 (flow_level) against its plain twin on each of the 8
    depth levels, with the contexts of the model's own autoregressive pass on
@@ -40,8 +46,9 @@ Phases, each of which raises on failure (exit code != 0):
 11. training: hold kernel K4 (raster) against its plain twin, bit for bit,
    on posed bodies at 256² with the training flags and with fragments,
    linear attributes and depth gradients, culled and not, and time it at
-   the training batch; hold K2 with its gradient against autograd of its
-   twin at B=72 and B=576; check one train step on the card against the CPU
+   the training batch; hold K2 with its gradient (the backward kernel, then
+   float32 products) against autograd of its twin at B=32, 72 and 576, and
+   time it; check one train step on the card against the CPU
    on a small batch; then train at full width with the training renderer
    (K4, per-face texels, culling): the synthetic batch at B=72 (256², 8
    joint samples), 5 train steps on fresh batches and 10 on one fixed batch
@@ -65,7 +72,8 @@ Phases, each of which raises on failure (exit code != 0):
 Phases 1-7 and 11-14 run with the fused level off.  Each path of phases 3, 4,
 6, 7, 9, 10, 11 and 14 is driven with the kernel launch counters
 set to 0 just before it and read just after; launches made to compare a
-kernel with its twin, or to time it, are not counted.  Prints one
+kernel with its twin, or to time it, are not counted.  Last, torch.profiler
+counts the kernel launches of one call of K2's backward.  Prints one
 {"kernels": [...]} line, then the card line as nvidia-smi gives it, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the humaniflow_torch
 package beside it, it exits non-zero and prints no result.
@@ -313,12 +321,23 @@ def _coverage_work(sv, faces, img, cull_sign):
     return tests, kept
 
 
+def _coverage_bound(sv, faces, img=IMG, cull_sign=1):
+    """(bound ms, bound_by) of K3 on these inputs: per edge test a0·x, + b0·y,
+    + c0 and the same for w1, then w2 = 1 − w0 − w1 (8 operations), per kept
+    face ~25 for the area and the six coefficients; the screen vertices, the
+    faces, the mask and the overflow counts once."""
+    m = sv.shape[0]
+    tests, kept = _coverage_work(sv, faces, img, cull_sign)
+    nbytes = 4 * sv.numel() + 4 * faces.numel() + m * img * img + 4 * m
+    return (*_bound_ms(8 * tests + 25 * kept, nbytes), tests, kept)
+
+
 def check_coverage(smpl):
     """Phase 5: K3 against its plain twin, bit for bit; returns its record."""
     import torch
 
     from humaniflow_torch.render import TexturedIUVRenderer, cuda_coverage
-    from humaniflow_torch.utils.profiling import cuda_ms
+    from humaniflow_torch.utils.profiling import coverage_cases, cuda_ms
 
     for img in (IMG, 200):
         renderer = TexturedIUVRenderer(img_wh=img, render_rgb=False)
@@ -334,6 +353,17 @@ def check_coverage(smpl):
                       f"{int(want.sum())} covered, overflow {int(overflow.sum())}")
                 if diff or int(overflow.abs().sum()) or int(want_overflow.abs().sum()):
                     raise AssertionError(f"K3 disagrees with its plain twin ({name}, {img}², cull {cull})")
+    # the cases that reach every branch of the kernel: bands, the large-box
+    # queue, ragged mask words, culled meshes, out-of-range indices
+    for name, (sv, faces, img, cull) in coverage_cases("cuda").items():
+        mask, overflow = cuda_coverage.coverage(sv, faces, img, cull_sign=cull)
+        torch.cuda.synchronize()
+        want, want_overflow = cuda_coverage.coverage_plain(sv, faces, img, cull_sign=cull)
+        diff = int((mask != want).sum())
+        print(f"K3 coverage, {name}: M={sv.shape[0]} F={faces.shape[0]} {img}² cull_sign={cull}: {diff} differing px "
+              f"of {int(want.sum())} covered, overflow {overflow.tolist()[:3]}")
+        if diff or not torch.equal(overflow, want_overflow):
+            raise AssertionError(f"K3 disagrees with its plain twin ({name})")
 
     # time at the SSP-3D shape: B·(N+1) meshes at 256², culled
     renderer = TexturedIUVRenderer(img_wh=IMG, render_rgb=False)
@@ -345,13 +375,8 @@ def check_coverage(smpl):
     print(f"K3 coverage at M={m}, {IMG}²: {diff} differing px on the first 32 meshes, overflow {int(overflow.sum())}")
     if diff or int(overflow.abs().sum()):
         raise AssertionError("K3 disagrees with its plain twin at the SSP-3D shape")
-    tests, kept = _coverage_work(sv, faces, IMG, 1)
-    # per test: a0·x, + b0·y, + c0 and the same for w1, then w2 = 1 − w0 − w1
-    # (8 operations); per kept face ~25 for the area and the six coefficients
-    flops = 8 * tests + 25 * kept
-    nbytes = 4 * sv.numel() + 4 * faces.numel() + m * IMG * IMG + 4 * m
-    bound, by = _bound_ms(flops, nbytes)
-    print(f"K3 work at M={m}: {tests:.4e} edge tests over {kept} kept faces, {nbytes / 1e9:.3f} GB")
+    bound, by, tests, kept = _coverage_bound(sv, faces)
+    print(f"K3 work at M={m}: {tests:.4e} edge tests over {kept} kept faces")
     return dict(
         name="coverage", replaces="humaniflow_tpu/render/binned_rasterizer.py:688", max_abs_err=float(diff),
         ms=cuda_ms(lambda: cuda_coverage.coverage(sv, faces, IMG, cull_sign=1), 20),
@@ -431,6 +456,31 @@ def ssp3d_split(model, smpls, cfg, renderer):
             samples, _ = _render_sample_silhouettes(renderer, pred["verts3D_samples"], extra["cam_wp"])
         return sil, samples
 
+    # K3 in the protocol's own launches on this batch: 8 samples of every
+    # image a launch (12 × 256 meshes, then 128), and the 32 point estimates
+    from humaniflow_torch.pipelines.evaluate import _flip_x
+    from humaniflow_torch.render import cuda_coverage
+
+    verts = pred["verts3D_samples"]
+    b, n, v = verts.shape[:3]
+    groups = {}
+    with torch.inference_mode():
+        for s0 in range(0, n, 8):
+            k = min(8, n - s0)
+            cam = extra["cam_wp"][:, None].expand(b, k, 3).reshape(b * k, 3)
+            sv = renderer._sil_screen(_flip_x(verts[:, s0 : s0 + k]).reshape(b * k, v, 3), cam)
+            groups.setdefault(b * k, []).append(sv)
+        groups.setdefault(b, []).append(renderer._sil_screen(extra["verts_flipped_point_est"], extra["cam_wp"]))
+    faces = renderer.dp["faces"]
+    k3 = {}
+    for m, svs in sorted(groups.items(), reverse=True):
+        ms = cuda_ms(lambda svs=svs: [cuda_coverage.coverage(sv, faces, IMG, cull_sign=1) for sv in svs], 5) / len(svs)
+        bounds = [_coverage_bound(sv, faces) for sv in svs]
+        k3[m] = dict(launches=len(svs), ms=ms, bound_ms=sum(x[0] for x in bounds) / len(svs),
+                     tests=sum(x[2] for x in bounds) / len(svs))
+        print(f"K3 in the SSP-3D launches, M={m}: {len(svs)} per batch, {ms:.4f} ms each against a bound of "
+              f"{k3[m]['bound_ms']:.4f} ms ({bounds[0][1]}), {k3[m]['tests']:.4e} edge tests each")
+
     pred["silhouettes"], pred["silhouettessamples"] = silhouettes()
     target.update(joints2D=batch["joints2D"], joints2D_vis=batch["joints2D_visib"], silhouettes=batch["silhouette"])
     tracker = EvalMetricsTracker(EVAL_METRICS_SSP3D, num_samples_for_prob_metrics=N, sync_every=1 << 20)
@@ -443,6 +493,7 @@ def ssp3d_split(model, smpls, cfg, renderer):
         "eval_step_ms": cuda_ms(lambda: eval_step(batch, generator=gen.manual_seed(13)), 5),
         "silhouettes_ms": cuda_ms(silhouettes, 5),
         "metrics_ms": cuda_ms(metrics, 5),
+        "k3": k3,
     }
 
 
@@ -845,7 +896,10 @@ def check_smpl_backward(smpl):
         leaf = [a.detach().requires_grad_(i < 3) for i, a in enumerate(args)]
         grad = torch.randn((rows, 3, V), generator=torch.Generator("cuda").manual_seed(8), device="cuda")
         verts = cuda_lbs.smpl_verts_differentiable(*leaf)
+        before = cuda_lbs.LAUNCHES["smpl_verts_backward"]
         got = torch.autograd.grad(verts, leaf[:3], grad)
+        if cuda_lbs.LAUNCHES["smpl_verts_backward"] != before + 1:
+            raise AssertionError("K2's backward did not launch its kernel exactly once")
         plain = cuda_lbs.smpl_verts_plain(*leaf)
         want = torch.autograd.grad(plain, leaf[:3], grad)
         fwd_err = float((verts - plain).detach().abs().max())
@@ -884,6 +938,26 @@ def check_smpl_backward(smpl):
            for k, v in (("ms", "bwd_ms"), ("bound_ms", "bound"), ("forward_ms", "fwd_ms"),
                         ("forward_bound_ms", "fwd_bound"))},
     )
+
+
+def profile_smpl_backward(smpl, record):
+    """Kernel launches and device busy ms of one call of K2's backward (the
+    kernel and the products) at the optimise loop's 32 rows and training's
+    576, by torch.profiler; added to the backward's record."""
+    import torch
+
+    from humaniflow_torch.models import cuda_lbs
+    from humaniflow_torch.utils.profiling import device_profile
+
+    for rows in (B, TRAIN_B * TRAIN_NJ):
+        args = _kernel_args(smpl, (rows,), V, seed=7)
+        grad = torch.randn((rows, 3, V), generator=torch.Generator("cuda").manual_seed(8), device="cuda")
+        needs = [True] * 3 + [False] * 4
+        prof = device_profile(lambda: cuda_lbs.smpl_verts_backward(grad, needs, *args), iters=5)
+        record[f"launches_per_call_b{rows}"] = prof["launches"]
+        record[f"device_busy_ms_b{rows}"] = prof["device_busy_ms"]
+        print(f"K2's backward, rows={rows}: {prof['launches']:.0f} kernel launches per call, device busy "
+              f"{prof['device_busy_ms']:.4f} ms; {prof['top_kernels_ms'][:4]}")
 
 
 def _train_batch(b, img, seed, device):
@@ -1578,6 +1652,14 @@ def _main() -> int:
         if not 0.0 <= final[m] <= 1.0:
             raise AssertionError(f"{m} = {final[m]} lies outside [0, 1]")
     split = ssp3d_split(model, smpls, cfg, renderer)
+    k3 = split["k3"]
+    records["coverage"].update(
+        ssp3d_batch_ms=sum(g["launches"] * g["ms"] for g in k3.values()),
+        ssp3d_batch_bound_ms=sum(g["launches"] * g["bound_ms"] for g in k3.values()),
+        **{f"{key}_m{m}": g[key] for m, g in k3.items() for key in ("launches", "ms", "bound_ms")},
+    )
+    print(f"K3 per SSP-3D batch: {records['coverage']['ssp3d_batch_ms']:.4f} ms against a bound of "
+          f"{records['coverage']['ssp3d_batch_bound_ms']:.4f} ms")
     check_eval_against_cpu(model, smpls, cfg)
     print(f"SSP-3D protocol B={B} N={N} {IMG}²: {ssp3d_img_s:.2f} img/s over {PROTOCOL_BATCHES - 1} batches after a "
           f"warm-up; per batch eval step {split['eval_step_ms']:.2f} ms, silhouettes {split['silhouettes_ms']:.2f} ms, "
@@ -1697,12 +1779,13 @@ def _main() -> int:
               f"{prof['launches']:.0f} kernel launches per batch")
     _set_fused(False)
     profile_optimise(model, smpl, pred)
+    profile_smpl_backward(smpl, records["smpl_verts_backward"])
 
     kernels = []
     sources = {"smpl_verts": "csrc/smpl_lbs.cu", "smpl_moments": "csrc/smpl_lbs.cu", "coverage": "csrc/coverage.cu",
                "flow_level": "csrc/flow_level.cu", "raster": "csrc/raster.cu",
-               # K2's gradient: torch adjoints (SMPLVerts.backward), as the JAX package's is XLA
-               "smpl_verts_backward": "models/cuda_lbs.py",
+               # K2's backward: the per-vertex kernel, then float32 products (models/cuda_lbs.py)
+               "smpl_verts_backward": "csrc/smpl_lbs.cu",
                "tiled_raster": "csrc/tiled_raster.cu",
                # no path calls K7, in the JAX package or here (launches 0)
                "lbs_skin": "csrc/lbs_skin.cu"}

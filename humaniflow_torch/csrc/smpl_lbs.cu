@@ -4,6 +4,9 @@
 //                 _smpl_verts_kernel (wrapper smpl_verts_fused).
 // K1 smpl_moments replaces humaniflow_tpu/models/pallas_lbs.py
 //                 _smpl_moments_kernel (wrapper smpl_verts_moments_fused).
+// K2's backward   smpl_verts_bwd: the per-vertex part of the adjoints of
+//                 smpl_verts_fused's custom VJP (_fused_bwd, _lbs_bwd), which
+//                 the JAX package computes with XLA einsums.
 //
 // Both compute, for each sample row b and vertex v,
 //   p[c]   = v_template[c,v] + sum_l shapedirs[l,c,v]*beta[b,l]
@@ -29,6 +32,17 @@
 // loop over rows needs no unrolling.  K1's block owns one (vertex tile,
 // group) pair and loops over all of the group's rows, so its sums need no
 // atomics and no second pass and are deterministic.
+//
+// K2's backward.  Every adjoint of the vertices follows from two per-vertex
+// tensors: dp[b,i,v] = sum_c T12[3c+i] g[b,c,v] (B, 3, V) and
+// G12[b,r,v] = [g (x) p, g] (B, 12, V).  smpl_verts_bwd_kernel computes them
+// with the forward's staging and blend in registers: it reads the cotangent
+// g once, writes dp and G12 once each (only those some adjoint needs), and
+// never writes T12 or p.  The reductions over V (dA12 = G12 W, dW, dbeta,
+// dpose_feature, ...) are float32 matrix products in models/cuda_lbs.py, as
+// the JAX package leaves them to XLA.  Bound: per (row, vertex) 3*(nb+207)
+// FMAs for p, 216 for T12's rotation part, 9 for dp; the outputs (60 bytes a
+// (row, vertex)) are read again by the products.
 
 #include <cuda_runtime.h>
 
@@ -218,6 +232,69 @@ __global__ void __launch_bounds__(kVT) smpl_moments_kernel(
   }
 }
 
+// The rotation part of T12 for staged row r: t[3c+i] = sum_j W[v,j] R_j[c,i].
+__device__ __forceinline__ void rot_row(const Stage& s, int r, const float (&w)[kJoints],
+                                        float (&t)[9]) {
+#pragma unroll
+  for (int q = 0; q < 9; ++q) t[q] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kJoints; ++j) {
+    const float4* a = reinterpret_cast<const float4*>(&s.a12[r][j * 12]);
+    const float4 a0 = a[0], a1 = a[1], a2 = a[2];
+    const float av[9] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x};
+#pragma unroll
+    for (int q = 0; q < 9; ++q) t[q] = fmaf(w[j], av[q], t[q]);
+  }
+}
+
+// Grid (ceil(V/kVT), ceil(B/rows)), rows <= kRows sample rows a block (fewer
+// than kRows when B is small, so that the blocks fill the card).  g is read
+// at g[b*gsb + c*gsc + v*gsv]; dp (B, 3, V) and g12 (B, 12, V) are written
+// when not null.
+__global__ void __launch_bounds__(kVT) smpl_verts_bwd_kernel(
+    const float* __restrict__ a12, const float* __restrict__ betas,
+    const float* __restrict__ pf, const float* __restrict__ vt,
+    const float* __restrict__ sd, const float* __restrict__ pd,
+    const float* __restrict__ lbs_w, const float* __restrict__ g, long long gsb,
+    long long gsc, long long gsv, float* __restrict__ dp, float* __restrict__ g12, int B,
+    int V, int nb, int rows) {
+  __shared__ Stage s;
+  const int v_raw = blockIdx.x * kVT + threadIdx.x;
+  const int v = min(v_raw, V - 1);  // threads past V compute a copy, store nothing
+  const long long row0 = (long long)blockIdx.y * rows;
+  const int nrows = min(rows, B - (int)row0);
+  stage_rows(s, a12, betas, pf, nb, row0, nrows);
+  __syncthreads();
+  if (g12 != nullptr) blend_rows(s, v, V, nb, vt, sd, pd);  // the same branch in every thread
+  if (v_raw >= V) return;
+  float w[kJoints];
+  if (dp != nullptr) load_weights(lbs_w, v, w);
+#pragma unroll 1
+  for (int r = 0; r < nrows; ++r) {
+    const long long b = row0 + r;
+    const float* gb = g + b * gsb + (long long)v * gsv;
+    const float gc[3] = {__ldg(gb), __ldg(gb + gsc), __ldg(gb + 2 * gsc)};
+    if (dp != nullptr) {
+      float t[9];
+      rot_row(s, r, w, t);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        dp[(b * 3 + i) * V + v] = fmaf(t[6 + i], gc[2], fmaf(t[3 + i], gc[1], t[i] * gc[0]));
+    }
+    if (g12 != nullptr) {
+      const float p[3] = {s.u.p[0][r][threadIdx.x], s.u.p[1][r][threadIdx.x],
+                          s.u.p[2][r][threadIdx.x]};
+      float* o = g12 + b * 12 * V + v;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) o[(3 * c + i) * V] = gc[c] * p[i];
+        o[(9 + c) * V] = gc[c];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // All pointers are device pointers to contiguous float32 arrays:
@@ -249,5 +326,33 @@ extern "C" int smpl_moments_launch(const void* a12, const void* betas, const voi
   smpl_moments_kernel<<<grid, kVT, 0, (cudaStream_t)stream>>>(
       (const float*)a12, (const float*)betas, (const float*)pf, (const float*)vt,
       (const float*)sd, (const float*)pd, (const float*)lbs_w, (float*)out, N, V, nb);
+  return (int)cudaGetLastError();
+}
+
+// K2's backward, per-vertex part: inputs as smpl_verts_launch, the cotangent
+// g (B, 3, V) with element strides (gsb, gsc, gsv); dp (B, 3, V) and g12
+// (B, 12, V) contiguous, each written unless null (not both null).
+extern "C" int smpl_verts_bwd_launch(const void* a12, const void* betas, const void* pf,
+                                     const void* vt, const void* sd, const void* pd,
+                                     const void* lbs_w, const void* g, long long gsb,
+                                     long long gsc, long long gsv, void* dp, void* g12, int B,
+                                     int V, int nb, void* stream) {
+  if (B <= 0 || V <= 0 || (dp == nullptr && g12 == nullptr)) return 0;
+  if (nb < 0 || nb > kMaxBetas) return (int)cudaErrorInvalidValue;
+  // Halve the rows a block takes (to 4 at least) while the grid would not
+  // give each SM two blocks: the blend's loads, not its FMAs, bound a small
+  // batch.
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int vtiles = (V + kVT - 1) / kVT;
+  int rows = kRows;
+  while (rows > 4 && (long long)vtiles * ((B + rows - 1) / rows) < 2LL * sms) rows /= 2;
+  const dim3 grid(vtiles, (B + rows - 1) / rows);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  smpl_verts_bwd_kernel<<<grid, kVT, 0, (cudaStream_t)stream>>>(
+      (const float*)a12, (const float*)betas, (const float*)pf, (const float*)vt,
+      (const float*)sd, (const float*)pd, (const float*)lbs_w, (const float*)g, gsb, gsc, gsv,
+      (float*)dp, (float*)g12, B, V, nb, rows);
   return (int)cudaGetLastError();
 }

@@ -19,18 +19,22 @@ The counterpart of `humaniflow_tpu/models/pallas_lbs.py`:
 Each wrapper computes its plain PyTorch twin when the tensors lie on the
 CPU.  For CUDA tensors it launches the kernel, or raises on a wrong dtype,
 device, layout or shape; it never falls back.  `LAUNCHES` counts the kernel
-launches of each wrapper, so a run can show that it went through the
-kernels, and the CUDA runs of K2's backward.  The kernels are built with
+launches of each wrapper (K2's backward kernel under
+"smpl_verts_backward"), so a run can show that it went through the
+kernels.  The kernels are built with
 nvcc at first use (utils/cuda_build.py).
 
-Gradients.  The kernels compute no gradient, so on CUDA both wrappers raise
-when grad mode is on and an input requires grad, instead of returning
-vertices with no grad_fn.  `SMPLVerts` (`smpl_verts_differentiable`) is K2
-with its gradient, on both devices: its forward is `smpl_verts`, its
+Gradients.  The forward kernels compute no gradient, so on CUDA their
+wrappers raise when grad mode is on and an input requires grad, instead of
+returning vertices with no grad_fn.  `SMPLVerts` (`smpl_verts_differentiable`)
+is K2 with its gradient, on both devices: its forward is `smpl_verts`, its
 backward the explicit adjoints of the JAX package's custom VJP
-(`_fused_bwd`, `_lbs_bwd`, pallas_lbs.py:364-413), which JAX computes with
-XLA einsums outside any Pallas kernel; here they are float32 einsums and
-matmuls, computed only for the inputs that need them.
+(`_fused_bwd`, `_lbs_bwd`, pallas_lbs.py:364-413).  Every adjoint follows
+from two per-vertex tensors, dp (B, 3, V) and G12 = [g⊗p, g] (B, 12, V):
+`smpl_verts_backward_vertex` computes them in one launch of K2's backward
+kernel (csrc/smpl_lbs.cu; the plain twin on the CPU), and the reductions
+over V are float32 matrix products shared by both devices, as JAX leaves
+them to XLA einsums.  Each is computed only for the inputs that need it.
 
 Argument layouts (float32): a12 (..., 24, 12) per-joint [R (row-major 9) | t]
 rows, betas (..., NB), pose_feature (..., 207), v_template_cm (3, V),
@@ -50,15 +54,19 @@ NUM_POSE_FEATURES = 207
 MAX_BETAS = 16  # csrc/smpl_lbs.cu kMaxBetas
 
 
-def smpl_verts_plain(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):
-    """Plain PyTorch twin of K2: (B, 3, V) skinned vertices."""
-    b = betas.shape[0]
-    v = v_template_cm.shape[1]
-    v_posed = (
+def _posed_plain(betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm):
+    """(B, 3, V) posed vertices: template + shape and pose blend shapes."""
+    b, v = betas.shape[0], v_template_cm.shape[1]
+    return (
         v_template_cm
         + torch.einsum("bl,lcv->bcv", betas, shapedirs_cm)
         + torch.matmul(pose_feature, posedirs_cm.reshape(NUM_POSE_FEATURES, 3 * v)).reshape(b, 3, v)
     )
+
+
+def smpl_verts_plain(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):
+    """Plain PyTorch twin of K2: (B, 3, V) skinned vertices."""
+    v_posed = _posed_plain(betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm)
     t12 = torch.einsum("vj,bjr->brv", lbs_weights, a12)
     return torch.stack(
         [
@@ -117,6 +125,8 @@ _LAUNCHERS = {  # C entry point → (csrc source, argument types)
     "smpl_verts_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     "smpl_moments_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "lbs_skin_launch": ("lbs_skin", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+    "smpl_verts_bwd_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2
+                              + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
 }
 
 
@@ -171,53 +181,113 @@ def smpl_moments(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs
     return out
 
 
+def _dp_plain(grad, lbs_weights, a12):
+    """dp[b,i,v] = Σ_c T12[b,3c+i,v]·g[b,c,v], T12 = W·A12 (rotation part)."""
+    b, _, v = grad.shape
+    rot = torch.einsum("vj,bjr->brv", lbs_weights, a12[..., :9])  # (B, 9, V)
+    return torch.einsum("bciv,bcv->biv", rot.reshape(b, 3, 3, v), grad)
+
+
+def _g12_plain(grad, v_posed_cm):
+    """G12[b,r,v]: r = 3c+i → g[b,c,v]·p[b,i,v]; r = 9+c → g[b,c,v]."""
+    b, _, v = grad.shape
+    return torch.cat([torch.einsum("bcv,biv->bciv", grad, v_posed_cm).reshape(b, 9, v), grad], dim=1)
+
+
+def _require_full_float32(device):
+    """Raise on CUDA when float32 matmuls may run in TF32: the adjoints'
+    products must keep float32's precision."""
+    if device.type == "cuda" and (
+        torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise RuntimeError(
+            "K2's backward needs full float32 matmuls: torch.backends.cuda.matmul.allow_tf32 is "
+            f"{torch.backends.cuda.matmul.allow_tf32}, the float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()!r} (expected False and 'highest')"
+        )
+
+
+def _lbs_products(g12, need_w, need_a, lbs_weights, a12):
+    """(dW (V, 24) = Σ_b G12ᵀ·a12ᵀ, dA12 (B, 24, 12) = (G12·W)ᵀ) from
+    G12 (B, 12, V), None where not needed."""
+    b, _, v = g12.shape
+    flat = g12.reshape(b * 12, v)
+    dw = torch.matmul(flat.T, a12.transpose(1, 2).reshape(b * 12, NUM_JOINTS)) if need_w else None
+    da = torch.matmul(flat, lbs_weights).reshape(b, 12, NUM_JOINTS).transpose(1, 2) if need_a else None
+    return dw, da
+
+
 def lbs_skin_backward(grad, needs, lbs_weights, a12, v_posed_cm):
     """Adjoints of out[b,c,v] = Σ_j W[v,j]·(Σ_i R_j[c,i]·p[b,i,v] + t_j[c])
     with cotangent `grad` (B, 3, V): (dW (V, 24), da12 (B, 24, 12),
     dp (B, 3, V)), None where needs[i] is False (JAX: pallas_lbs.py
     `_lbs_bwd`).  v_posed_cm is read only for dW and da12."""
-    b, _, v = grad.shape
-    dp = None
-    if needs[2]:
-        t12 = torch.einsum("vj,bjr->brv", lbs_weights, a12)  # (B, 12, V)
-        # dL/dp[b,i,v] = Σ_c t12[b, 3c+i, v]·g[b,c,v]
-        dp = torch.einsum("bciv,bcv->biv", t12[:, :9].reshape(b, 3, 3, v), grad)
+    _require_full_float32(grad.device)
+    g12 = _g12_plain(grad, v_posed_cm) if needs[0] or needs[1] else None
+    dw, da = _lbs_products(g12, needs[0], needs[1], lbs_weights, a12) if g12 is not None else (None, None)
+    return dw, da, _dp_plain(grad, lbs_weights, a12) if needs[2] else None
+
+
+def smpl_verts_backward_vertex_plain(grad, need_dp, need_g12, a12, betas, pose_feature, v_template_cm,
+                                     shapedirs_cm, posedirs_cm, lbs_weights):
+    """Plain PyTorch twin of K2's backward kernel: (dp (B, 3, V),
+    G12 (B, 12, V)) for cotangent `grad` (B, 3, V), None where not needed."""
+    dp = _dp_plain(grad, lbs_weights, a12) if need_dp else None
     g12 = None
-    if needs[0] or needs[1]:
-        # G12[b,r,v]: r = 3c+i → g[b,c,v]·p[b,i,v]; r = 9+c → g[b,c,v]
-        g12 = torch.cat([torch.einsum("bcv,biv->bciv", grad, v_posed_cm).reshape(b, 9, v), grad], dim=1)
-    return (
-        torch.einsum("brv,bjr->vj", g12, a12) if needs[0] else None,
-        torch.einsum("brv,vj->bjr", g12, lbs_weights) if needs[1] else None,
-        dp,
+    if need_g12:
+        g12 = _g12_plain(grad, _posed_plain(betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm))
+    return dp, g12
+
+
+def smpl_verts_backward_vertex(grad, need_dp, need_g12, a12, betas, pose_feature, v_template_cm, shapedirs_cm,
+                               posedirs_cm, lbs_weights):
+    """K2's backward kernel: (dp (B, 3, V), G12 (B, 12, V)), each None
+    unless needed, in one launch; `grad` (B, 3, V) float32 in any strides.
+    The plain twin on the CPU."""
+    args = (a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights)
+    if grad.device.type == "cpu":
+        return smpl_verts_backward_vertex_plain(grad, need_dp, need_g12, *args)
+    b, v = betas.shape[0], v_template_cm.shape[1]
+    _check((b,), *args)
+    if grad.device != a12.device or grad.dtype != torch.float32 or tuple(grad.shape) != (b, 3, v):
+        raise ValueError(f"grad must be a float32 (B, 3, V) = {(b, 3, v)} tensor on {a12.device}, got "
+                         f"{grad.dtype} {tuple(grad.shape)} on {grad.device}")
+    if not (need_dp or need_g12):
+        return None, None
+    dp = torch.empty((b, 3, v), dtype=torch.float32, device=grad.device) if need_dp else None
+    g12 = torch.empty((b, 12, v), dtype=torch.float32, device=grad.device) if need_g12 else None
+    rc = _launcher("smpl_verts_bwd_launch")(
+        *(t.data_ptr() for t in args), grad.data_ptr(), *grad.stride(),
+        None if dp is None else dp.data_ptr(), None if g12 is None else g12.data_ptr(),
+        b, v, betas.shape[1], torch.cuda.current_stream(grad.device).cuda_stream,
     )
+    if rc != 0:
+        raise RuntimeError(f"smpl_verts_bwd_launch failed with CUDA error {rc}")
+    LAUNCHES["smpl_verts_backward"] += 1
+    return dp, g12
 
 
 def smpl_verts_backward(grad, needs, a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm,
                         lbs_weights):
     """Adjoints of the (B, 3, V) vertices with cotangent `grad` (B, 3, V) for
-    the seven inputs of smpl_verts, None where needs[i] is False.
-
-    The vertices are LBS (lbs_skin_backward) of the posed vertices
-    p = v_template + shapedirs·β + posedirs·pose_feature (JAX: pallas_lbs.py
-    `_fused_bwd`)."""
-    b, v = betas.shape[0], v_template_cm.shape[1]
-    pd_flat = posedirs_cm.reshape(NUM_POSE_FEATURES, 3 * v)
-    p = None
-    if needs[0] or needs[6]:
-        p = (
-            v_template_cm
-            + torch.einsum("bl,lcv->bcv", betas, shapedirs_cm)
-            + torch.matmul(pose_feature, pd_flat).reshape(b, 3, v)
-        )
-    dw, da, dp = lbs_skin_backward(grad, (needs[6], needs[0], any(needs[1:6])), lbs_weights, a12, p)
+    the seven inputs of smpl_verts, None where needs[i] is False (JAX:
+    pallas_lbs.py `_fused_bwd`): dp and G12 from K2's backward kernel (its
+    twin on the CPU), then float32 products over V."""
+    _require_full_float32(grad.device)
+    b, nb, v = betas.shape[0], betas.shape[1], v_template_cm.shape[1]
+    dp, g12 = smpl_verts_backward_vertex(
+        grad, any(needs[1:6]), needs[0] or needs[6],
+        a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights,
+    )
+    dw, da = _lbs_products(g12, needs[6], needs[0], lbs_weights, a12) if g12 is not None else (None, None)
+    dp_flat = dp.reshape(b, 3 * v) if dp is not None else None
     return (
         da,
-        torch.einsum("bcv,lcv->bl", dp, shapedirs_cm) if needs[1] else None,
-        torch.matmul(dp.reshape(b, 3 * v), pd_flat.T) if needs[2] else None,
+        torch.matmul(dp_flat, shapedirs_cm.reshape(nb, 3 * v).T) if needs[1] else None,
+        torch.matmul(dp_flat, posedirs_cm.reshape(NUM_POSE_FEATURES, 3 * v).T) if needs[2] else None,
         dp.sum(dim=0) if needs[3] else None,
-        torch.einsum("bcv,bl->lcv", dp, betas) if needs[4] else None,
-        torch.einsum("bk,bcv->kcv", pose_feature, dp) if needs[5] else None,
+        torch.matmul(betas.T, dp_flat).reshape(nb, 3, v) if needs[4] else None,
+        torch.matmul(pose_feature.T, dp_flat).reshape(NUM_POSE_FEATURES, 3, v) if needs[5] else None,
         dw,
     )
 
@@ -233,9 +303,7 @@ class SMPLVerts(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        if grad.device.type == "cuda":
-            LAUNCHES["smpl_verts_backward"] += 1
-        return smpl_verts_backward(grad.contiguous(), ctx.needs_input_grad, *ctx.saved_tensors)
+        return smpl_verts_backward(grad, ctx.needs_input_grad, *ctx.saved_tensors)
 
 
 def smpl_verts_differentiable(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm, lbs_weights):

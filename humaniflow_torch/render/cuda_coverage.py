@@ -19,6 +19,11 @@ candidates it dropped as `overflow`.  K3 has no capacity: `overflow` (M,)
 counts only faces whose vertex indices lie outside [0, V), which are
 dropped, and is 0 for any valid face table.
 
+K3 gives each (mesh, band of rows) one block, which keeps the band's mask
+as bits in shared memory and skips the faces and pixels already covered;
+`band_plan` cuts the image into bands whose bits fit `BAND_WORDS` (the
+whole image up to 512²).  csrc/coverage.cu describes the design.
+
 `coverage` computes the twin when the tensors lie on the CPU.  For CUDA
 tensors it launches K3, or raises on a wrong dtype, device, layout or
 shape; it never falls back.  K3 has no backward: on CUDA `coverage` raises
@@ -34,6 +39,15 @@ from ..utils.cuda_build import load_library, refuse_grad
 from .rasterizer import chunk_sizes
 
 LAUNCHES = {"coverage": 0}
+BAND_WORDS = 8192  # csrc/coverage.cu kBandWords: 32 KB of mask bits per block
+
+
+def band_plan(image_size: int):
+    """(rows per band, number of bands) of K3 at this image size: the
+    largest band whose bits, ceil(W / 32) words a row, fit BAND_WORDS."""
+    words_per_row = -(-image_size // 32)
+    rows = min(image_size, BAND_WORDS // words_per_row)
+    return rows, -(-image_size // rows)
 
 
 def _edge_plane_coeffs(tri: torch.Tensor) -> torch.Tensor:
@@ -130,7 +144,7 @@ def _check(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int, cul
 
 def _launcher():
     fn = load_library("coverage").coverage_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -150,12 +164,13 @@ def coverage(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int, c
     refuse_grad("K3 (coverage)", verts_screen)
     _check(verts_screen, faces, image_size, cull_sign)
     m, v = verts_screen.shape[:2]
-    mask = torch.zeros((m, image_size, image_size), dtype=torch.uint8, device=verts_screen.device)
+    band_rows, _ = band_plan(image_size)
+    mask = torch.empty((m, image_size, image_size), dtype=torch.uint8, device=verts_screen.device)
     overflow = torch.zeros((m,), dtype=torch.int32, device=verts_screen.device)
     stream = torch.cuda.current_stream(verts_screen.device).cuda_stream
     rc = _launcher()(
         verts_screen.data_ptr(), faces.data_ptr(), mask.data_ptr(), overflow.data_ptr(),
-        m, v, faces.shape[0], image_size, image_size, cull_sign, stream,
+        m, v, faces.shape[0], image_size, image_size, band_rows, cull_sign, stream,
     )
     if rc != 0:
         raise RuntimeError(f"coverage_launch failed with CUDA error {rc}")

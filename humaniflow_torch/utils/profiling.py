@@ -165,6 +165,66 @@ class SyntheticEvalDataset:
         }
 
 
+def coverage_cases(device="cuda") -> dict:
+    """Seeded inputs that reach every branch of K3 (csrc/coverage.cu):
+    {name: (verts_screen (M, V, 3) float32, faces (F, 3) int32, image_size,
+    cull_sign)}.  A face over the whole image; a mesh whose faces are all
+    culled beside its mirror image, whose faces are all kept; faces across
+    the band borders at 1024² (bands of 256 rows) with a NaN vertex and two
+    out-of-range indices; image sizes 33 and 200 (a ragged last word of mask
+    bits); M = 1 and M = 257; 2,000 slivers, more of whose boxes exceed
+    K3's 4,096-pixel threshold than its queue holds.  F is not a multiple
+    of 32."""
+    import torch
+
+    rng = np.random.default_rng(0)
+
+    def soup(m, f, img, lo, hi, cy=None):
+        """m meshes of f faces with 3 vertices each: centres over the image
+        and past its borders (rows near cy if given), sizes log-uniform in
+        [lo, hi] px."""
+        c = rng.uniform(-0.1 * img, 1.1 * img, size=(m, f, 1, 2))
+        if cy is not None:
+            c[..., 1] = rng.choice(cy, size=(m, f, 1)) + rng.uniform(-30, 30, size=(m, f, 1))
+        size = np.exp(rng.uniform(np.log(lo), np.log(hi), size=(m, f, 1, 1)))
+        xy = c + size * rng.uniform(-1, 1, size=(m, f, 3, 2))
+        verts = np.concatenate([xy, rng.uniform(size=(m, f, 3, 1))], -1).reshape(m, 3 * f, 3)
+        return verts, np.arange(3 * f).reshape(f, 3)
+
+    cases = {}
+    whole = np.array([[[-5.0, -5.0, 0], [768.0, -5.0, 0], [-5.0, 768.0, 0], [10.2, 20.7, 0], [30.4, 12.1, 0],
+                       [22.9, 40.3, 0]]])
+    cases["whole-image face"] = (whole, np.arange(6).reshape(2, 3), 256, 0)
+    v, faces = soup(1, 45, 256, 2, 40)
+    x, y = v[0, :, 0].reshape(-1, 3), v[0, :, 1].reshape(-1, 3)
+    area = (x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0]) - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])
+    faces[area > 0] = faces[area > 0][:, [0, 2, 1]]  # every face wound negatively: culled by cull_sign 1
+    mirror = v.copy()
+    mirror[..., 0] = 256 - mirror[..., 0]  # the mirror image: every face wound positively
+    cases["all culled, and its mirror all kept"] = (np.concatenate([v, mirror]), faces, 256, 1)
+    v, faces = soup(3, 301, 1024, 2, 300, cy=np.array([256.0, 512.0, 768.0]))
+    v[0, 17, 1] = np.nan
+    faces = np.concatenate([faces, [[0, 1, v.shape[1]], [-1, 2, 3]]])
+    cases["band borders at 1024², NaN vertex, 2 indices out of range"] = (v, faces, 1024, 0)
+    cases["33², ragged word"] = (*soup(3, 45, 33, 0.5, 40), 33, 1)
+    cases["200², ragged word"] = (*soup(3, 45, 200, 1, 150), 200, 0)
+    cases["M=1"] = (*soup(1, 77, 256, 1, 100), 256, -1)
+    cases["M=257"] = (*soup(257, 45, 256, 1, 60), 256, 1)
+    # slivers: long thin faces, so that their boxes are large and cover little
+    p0 = rng.uniform(-20, 276, size=(2, 2000, 1, 2))
+    ang = rng.uniform(0, 2 * np.pi, size=(2, 2000, 1))
+    d = np.stack([np.cos(ang), np.sin(ang)], -1) * rng.uniform(50, 250, size=(2, 2000, 1, 1))
+    n = np.stack([-np.sin(ang), np.cos(ang)], -1) * rng.uniform(0.3, 2.0, size=(2, 2000, 1, 1))
+    xy = np.concatenate([p0, p0 + d, p0 + 0.5 * d + n], axis=2)
+    v = np.concatenate([xy, np.zeros((2, 2000, 3, 1))], -1).reshape(2, 6000, 3)
+    cases["2,000 large boxes"] = (v, np.arange(6000).reshape(2000, 3), 256, 0)
+    return {
+        name: (torch.tensor(v, dtype=torch.float32, device=device),
+               torch.tensor(np.asarray(f), dtype=torch.int32, device=device), img, cull)
+        for name, (v, f, img, cull) in cases.items()
+    }
+
+
 def staged_batch(dataset, b: int, device) -> dict:
     """The dataset's first batch of b items as the eval step takes it, with
     every array on `device` (strings dropped)."""

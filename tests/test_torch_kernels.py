@@ -1,5 +1,5 @@
-"""Kernels K1 (smpl_moments) and K2 (smpl_verts, with its gradient) of
-csrc/smpl_lbs.cu, K3 (coverage) of csrc/coverage.cu, K4 (raster) of
+"""Kernels K1 (smpl_moments) and K2 (smpl_verts, with its backward kernel)
+of csrc/smpl_lbs.cu, K3 (coverage) of csrc/coverage.cu, K4 (raster) of
 csrc/raster.cu, K5 (flow_level) of csrc/flow_level.cu, K6 (tiled_raster) of
 csrc/tiled_raster.cu and K7 (lbs_skin, with its gradient) of
 csrc/lbs_skin.cu against their plain PyTorch twins, on an NVIDIA GPU; and
@@ -139,6 +139,33 @@ def test_coverage_kernel_matches_plain_bit_for_bit(img, cull_sign):
         assert torch.equal(overflow, want_overflow)
         assert bool(mask.any())
     assert overflow.tolist() == [1, 1]  # the ragged set's out-of-range face
+
+
+K3_CASES = [  # the names of utils/profiling.py::coverage_cases
+    "whole-image face", "all culled, and its mirror all kept",
+    "band borders at 1024², NaN vertex, 2 indices out of range", "33², ragged word", "200², ragged word",
+    "M=1", "M=257", "2,000 large boxes",
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K3_CASES)
+def test_coverage_kernel_matches_plain_on_edge_cases(name):
+    """Bands, cluster shares, the warp walk's two box shapes, the queue of
+    large boxes, ragged mask words and the overflow count, bit for bit."""
+    _require_cuda()
+    from humaniflow_torch.utils.profiling import coverage_cases
+
+    sv, faces, img, cull = coverage_cases("cuda")[name]
+    mask, overflow = cuda_coverage.coverage(sv, faces, img, cull_sign=cull)
+    torch.cuda.synchronize()
+    want_mask, want_overflow = cuda_coverage.coverage_plain(sv, faces, img, cull_sign=cull)
+    assert int((mask != want_mask).sum()) == 0
+    assert torch.equal(overflow, want_overflow)
+    if name.startswith("band borders"):
+        assert overflow.tolist() == [2, 2, 2]  # once per mesh, not once per band or block
+    if name.startswith("all culled"):
+        assert not bool(mask[0].any()) and bool(mask[1].any())
 
 
 @pytest.mark.cuda
@@ -306,18 +333,68 @@ def test_raster_wrapper_rejects_bad_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [72, 576])
-def test_k2_backward_on_the_card_matches_autograd_of_the_twin(rows):
+@pytest.mark.parametrize("rows,v", [(1, 6890), (32, 6890), (72, 6890), (576, 6890), (37, 1000)])
+def test_k2_backward_kernel_matches_its_twin(rows, v):
+    """(dp, G12) of the backward kernel against the plain per-vertex part,
+    with a contiguous cotangent and with the (B, V, 3)-major one that
+    smpl_forward's transposed output hands back."""
     _require_cuda()
-    args = [a.detach().requires_grad_(i in (0, 1, 2)) for i, a in enumerate(_kernel_inputs_cuda((rows,), 6890))]
-    g = torch.randn((rows, 3, 6890), generator=torch.Generator("cuda").manual_seed(3), device="cuda")
-    before = cuda_lbs.LAUNCHES["smpl_verts"]
+    args = _kernel_inputs_cuda((rows,), v)
+    g = torch.randn((rows, v, 3), generator=torch.Generator("cuda").manual_seed(4), device="cuda")
+    for grad in (g.transpose(1, 2).contiguous(), g.transpose(1, 2)):
+        before = cuda_lbs.LAUNCHES["smpl_verts_backward"]
+        dp, g12 = cuda_lbs.smpl_verts_backward_vertex(grad, True, True, *args)
+        torch.cuda.synchronize()
+        assert cuda_lbs.LAUNCHES["smpl_verts_backward"] == before + 1
+        want_dp, want_g12 = cuda_lbs.smpl_verts_backward_vertex_plain(grad, True, True, *args)
+        for got, want in ((dp, want_dp), (g12, want_g12)):
+            assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,v", [(1, 6890), (32, 6890), (72, 6890), (576, 6890), (37, 1000)])
+def test_k2_backward_on_the_card_matches_autograd_of_the_twin(rows, v):
+    """All seven adjoints, one launch of the backward kernel."""
+    _require_cuda()
+    args = [a.detach().requires_grad_(True) for a in _kernel_inputs_cuda((rows,), v)]
+    g = torch.randn((rows, 3, v), generator=torch.Generator("cuda").manual_seed(5), device="cuda")
+    before = cuda_lbs.LAUNCHES["smpl_verts"], cuda_lbs.LAUNCHES["smpl_verts_backward"]
     out = cuda_lbs.smpl_verts_differentiable(*args)
-    assert cuda_lbs.LAUNCHES["smpl_verts"] == before + 1 and out.grad_fn is not None
-    got = torch.autograd.grad(out, args[:3], g)
-    want = torch.autograd.grad(cuda_lbs.smpl_verts_plain(*args), args[:3], g)
-    for a, w in zip(got, want):
-        assert float((a - w).abs().max() / w.abs().max()) <= 1e-5
+    assert cuda_lbs.LAUNCHES["smpl_verts"] == before[0] + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, args, g)
+    assert cuda_lbs.LAUNCHES["smpl_verts_backward"] == before[1] + 1
+    want = torch.autograd.grad(cuda_lbs.smpl_verts_plain(*args), args, g)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert float((a - w).abs().max() / w.abs().max()) <= 1e-5, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", [(True, True, True, False, False, False, False), (False, True, False, False, False,
+                                   False, False), (True, False, False, False, False, False, True)])
+def test_k2_backward_on_the_card_returns_only_what_is_needed(needs):
+    _require_cuda()
+    args = _kernel_inputs_cuda((8,), 1000)
+    g = torch.randn((8, 3, 1000), generator=torch.Generator("cuda").manual_seed(6), device="cuda")
+    full = cuda_lbs.smpl_verts_backward(g, [True] * 7, *args)
+    part = cuda_lbs.smpl_verts_backward(g, list(needs), *args)
+    for i, (need, a, f) in enumerate(zip(needs, part, full)):
+        assert (a is None) == (not need), i
+        if need:
+            assert torch.equal(a, f), i
+
+
+@pytest.mark.cuda
+def test_k2_backward_refuses_tf32_matmuls():
+    _require_cuda()
+    args = _kernel_inputs_cuda((4,), 256)
+    g = torch.ones((4, 3, 256), device="cuda")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="full float32"):
+            cuda_lbs.smpl_verts_backward(g, [True] * 7, *args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 @pytest.mark.cuda
