@@ -46,17 +46,24 @@ Phases, each of which raises on failure (exit code != 0):
 11. training: hold kernel K4 (raster) against its plain twin, bit for bit,
    on posed bodies at 256² with the training flags and with fragments,
    linear attributes and depth gradients, culled and not, and time it at
-   the training batch; hold K2 with its gradient (the backward kernel, then
-   float32 products) against autograd of its twin at B=32, 72 and 576, and
-   time it; check one train step on the card against the CPU
+   the training batch; hold K2's forward against its twin at every row
+   count the paths give it (32, 72, 320, 576, 3,200, 3,232) and at ragged
+   ones (1, 17, 33), printing the tile forward_plan picks for each, and time
+   it at the paths' shapes (CUDA events and the kernel's device time); hold
+   K2 with its gradient (the backward kernel, then float32 products)
+   against autograd of its twin at B=32, 72 and 576, and time it; check one
+   train step on the card against the CPU
    on a small batch; then train at full width with the training renderer
    (K4, per-face texels, culling): the synthetic batch at B=72 (256², 8
    joint samples), 5 train steps on fresh batches and 10 on one fixed batch
    (its loss must fall), timed (synth, upload, step, img/s), and a short
    train_humaniflow run (2 train + 1 val steps) writing a checkpoint;
 12. hold kernel K6 (tiled_raster) against its plain twin, bit for bit, on 32
-   posed bodies at 256² with the renderer's tile-sorted faces and on
-   hand-made ragged faces at 128² and 384², and time it at B=32;
+   posed bodies at 256² with the renderer's tile-sorted faces, on
+   hand-made ragged faces at 128² and 384² and on 2,400 near-degenerate
+   faces (utils/profiling.py::sliver_case: slivers whose rounding claims
+   pixels beyond their tips, needles, areas just above 1e-9), and time it
+   at B=32;
 13. hold kernel K7 (lbs_skin) against its plain twin at B=37 and B·N=3200
    (V=6890), and its gradient (LBSSkin) against autograd of the twin, and
    time both;
@@ -67,7 +74,9 @@ Phases, each of which raises on failure (exit code != 0):
    figure (4 views and the T-pose, coloured by uncertainty) and the 18
    J2D-sorted sample renders through the tiled renderer (K6), each held
    against the exact-scan renderer (masks and depth on every pixel; colours
-   may differ only where faces tie), timed.
+   may differ only where faces tie), timed, and K6 timed in the figures'
+   own launches (CUDA events around each call, beside each launch's
+   bound).
 
 Phases 1-7 and 11-14 run with the fused level off.  Each path of phases 3, 4,
 6, 7, 9, 10, 11 and 14 is driven with the kernel launch counters
@@ -880,11 +889,52 @@ def check_raster(smpl, cfg):
     )
 
 
+FORWARD_ROWS = (B, TRAIN_B, 10 * B, TRAIN_B * TRAIN_NJ, B * N, B * (N + 1))  # K2's forward rows on the paths
+RAGGED_ROWS = (1, 17, 33)
+
+
+def check_smpl_verts_plans(smpl, record):
+    """Phase 11b: K2's forward against its twin at every row count the paths
+    give it (32 optimise and point estimates, 72 training, 320 3DPW samples,
+    576 training samples, 3,200 predict samples, 3,232 the SSP-3D eval step)
+    and at ragged ones, each through the tile forward_plan picks (printed);
+    its time at the paths' shapes (CUDA events) beside the bound; added to
+    K2's record."""
+    import torch
+
+    from humaniflow_torch.models import cuda_lbs
+    from humaniflow_torch.utils.profiling import cuda_ms
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = 0.0
+    for rows in sorted(FORWARD_ROWS + RAGGED_ROWS):
+        args = _kernel_args(smpl, (rows,), V, seed=rows)
+        plan = cuda_lbs.forward_plan(rows, V, sms)
+        before = cuda_lbs.LAUNCHES["smpl_verts"]
+        got = cuda_lbs.smpl_verts(*args)
+        torch.cuda.synchronize()
+        if cuda_lbs.LAUNCHES["smpl_verts"] != before + 1:
+            raise AssertionError(f"K2's forward did not launch exactly once at rows={rows}")
+        err = float((got - cuda_lbs.smpl_verts_plain(*args)).abs().max())
+        worst = max(worst, err)
+        line = f"K2 forward rows={rows}: plan {plan} {cuda_lbs.FORWARD_PLANS[plan]} (rows × vertices a block), " \
+               f"max_abs_err {err:.3e} m"
+        if rows in FORWARD_ROWS:
+            ms = cuda_ms(lambda: cuda_lbs.smpl_verts(*args), 20)
+            bound = _bound_ms(*_work(args, rows * 3 * V, rows, V))[0]
+            record.update({f"forward_ms_b{rows}": ms, f"forward_bound_ms_b{rows}": bound, f"plan_b{rows}": plan})
+            line += f"; {ms:.4f} ms per call, bound {bound:.4f} ms"
+        print(line)
+        if not err <= VERTS_ATOL:
+            raise AssertionError(f"K2's forward disagrees with its twin at rows={rows}: {err} > {VERTS_ATOL}")
+    record["max_abs_err"] = max(record["max_abs_err"], worst)
+
+
 def check_smpl_backward(smpl):
     """Phase 11b: K2 with its gradient against autograd of its twin at the
     rows the paths give it (B = 32 in the optimise loop; B = 72 targets and
-    point estimates, B·N = 576 samples in training), and K2's forward time
-    at 3DPW's 320 sample rows; returns the backward's record."""
+    point estimates, B·N = 576 samples in training); returns the backward's
+    record."""
     import torch
 
     from humaniflow_torch.models import cuda_lbs
@@ -906,7 +956,6 @@ def check_smpl_backward(smpl):
         rel = max(float((a - w).abs().max() / w.abs().max()) for a, w in zip(got, want))
         err = max(float((a - w).abs().max()) for a, w in zip(got, want))
         needs = [True] * 3 + [False] * 4
-        fwd_ms = cuda_ms(lambda: cuda_lbs.smpl_verts(*args), 20)
         bwd_ms = cuda_ms(lambda: cuda_lbs.smpl_verts_backward(grad, needs, *args), 10)
         plain_ms = cuda_ms(lambda: torch.autograd.grad(cuda_lbs.smpl_verts_plain(*leaf), leaf[:3], grad), 5)
         nb = args[1].shape[-1]
@@ -916,27 +965,18 @@ def check_smpl_backward(smpl):
         nbytes = 4 * (grad.numel() + sum(a.numel() for a in args) + sum(a.numel() for a in args[:3]))
         bound, by = _bound_ms(flops, nbytes)
         print(f"K2 with its gradient, rows={rows}: forward max_abs_err {fwd_err:.3e} m; backward max_abs_err "
-              f"{err:.3e}, {rel:.3e} of the largest; forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms "
-              f"(bound {bound:.4f} ms, {by}), autograd of the twin (forward + backward) {plain_ms:.4f} ms")
+              f"{err:.3e}, {rel:.3e} of the largest; backward {bwd_ms:.4f} ms (bound {bound:.4f} ms, {by}), "
+              f"autograd of the twin (forward + backward) {plain_ms:.4f} ms")
         if not (fwd_err <= VERTS_ATOL and rel <= K2_GRAD_RTOL):
             raise AssertionError(f"K2's gradient disagrees with autograd of its twin at rows={rows}: {rel}")
-        fwd_bound = _bound_ms(*_work(args, rows * 3 * V, rows, V))[0]
-        out[rows] = dict(err=err, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_ms=plain_ms, bound=bound, by=by,
-                         fwd_bound=fwd_bound)
-    args = _kernel_args(smpl, (10 * B,), V, seed=9)
-    fwd_ms_320 = cuda_ms(lambda: cuda_lbs.smpl_verts(*args), 20)
-    fwd_bound_320 = _bound_ms(*_work(args, 10 * B * 3 * V, 10 * B, V))[0]
-    print(f"K2 forward, rows={10 * B}: {fwd_ms_320:.4f} ms (bound {fwd_bound_320:.4f} ms); at rows={B}: "
-          f"{out[B]['fwd_ms']:.4f} ms (bound {out[B]['fwd_bound']:.4f} ms)")
+        out[rows] = dict(err=err, bwd_ms=bwd_ms, plain_ms=plain_ms, bound=bound, by=by)
     b = out[TRAIN_B * TRAIN_NJ]
     return dict(
         name="smpl_verts_backward", replaces="humaniflow_tpu/models/pallas_lbs.py:364",
         max_abs_err=max(o["err"] for o in out.values()), ms=b["bwd_ms"], plain_ms=b["plain_ms"],
         bound_ms=b["bound"], bound_by=b["by"], ms_rows=TRAIN_B * TRAIN_NJ,
-        forward_ms_b320=fwd_ms_320, forward_bound_ms_b320=fwd_bound_320,
         **{f"{k}_b{rows}": o[v] for rows, o in out.items()
-           for k, v in (("ms", "bwd_ms"), ("bound_ms", "bound"), ("forward_ms", "fwd_ms"),
-                        ("forward_bound_ms", "fwd_bound"))},
+           for k, v in (("ms", "bwd_ms"), ("bound_ms", "bound"))},
     )
 
 
@@ -958,6 +998,44 @@ def profile_smpl_backward(smpl, record):
         record[f"device_busy_ms_b{rows}"] = prof["device_busy_ms"]
         print(f"K2's backward, rows={rows}: {prof['launches']:.0f} kernel launches per call, device busy "
               f"{prof['device_busy_ms']:.4f} ms; {prof['top_kernels_ms'][:4]}")
+
+
+def profile_kernel_device_times(smpl, records):
+    """The kernels' own device time per call (torch.profiler), without the
+    wrapper's host time that CUDA events around back-to-back calls also
+    count where the launches are short: K2's forward at the paths' rows,
+    K2's backward kernel at 32, 72 and 576 rows, K1 at (32, 100) and K6 at
+    phase 12's shape; added to the records."""
+    import torch
+
+    from humaniflow_torch.models import cuda_lbs
+    from humaniflow_torch.render import cuda_tiled
+    from humaniflow_torch.utils.profiling import kernel_device_ms
+
+    for rows in FORWARD_ROWS:
+        args = _kernel_args(smpl, (rows,), V, seed=rows)
+        records["smpl_verts"][f"forward_device_ms_b{rows}"] = kernel_device_ms(
+            lambda: cuda_lbs.smpl_verts(*args), "smpl_verts_kernel", 20)
+    for rows in (B, TRAIN_B, TRAIN_B * TRAIN_NJ):
+        args = _kernel_args(smpl, (rows,), V, seed=7)
+        grad = torch.randn((rows, 3, V), generator=torch.Generator("cuda").manual_seed(8), device="cuda")
+        records["smpl_verts_backward"][f"kernel_device_ms_b{rows}"] = kernel_device_ms(
+            lambda: cuda_lbs.smpl_verts_backward_vertex(grad, True, True, *args), "smpl_verts_bwd", 20)
+    args = _kernel_args(smpl, (B, N), V, seed=2)
+    records["smpl_moments"]["device_ms"] = kernel_device_ms(lambda: cuda_lbs.smpl_moments(*args), "smpl_moments",
+                                                            20)
+    renderer = _vis_renderer("tiled")
+    sv = _vis_screen(renderer, smpl, B, seed=71)
+    faces = renderer.dp["faces"]
+    faces = faces[cuda_tiled.tile_sort_order(sv[0], faces)].contiguous()
+    records["tiled_raster"]["device_ms"] = kernel_device_ms(lambda: cuda_tiled.rasterize_tiled(sv, faces, IMG),
+                                                            "_kernel", 20)
+    print("kernels' device ms per call (torch.profiler): " + json.dumps(
+        {"K2 forward": {r: round(records["smpl_verts"][f"forward_device_ms_b{r}"], 5) for r in FORWARD_ROWS},
+         "K2 backward kernel": {r: round(records["smpl_verts_backward"][f"kernel_device_ms_b{r}"], 5)
+                                for r in (B, TRAIN_B, TRAIN_B * TRAIN_NJ)},
+         "K1 (32, 100)": round(records["smpl_moments"]["device_ms"], 5),
+         f"K6 B={B}": round(records["tiled_raster"]["device_ms"], 5)}))
 
 
 def _train_batch(b, img, seed, device):
@@ -1221,7 +1299,7 @@ def check_tiled_raster(smpl):
     import torch
 
     from humaniflow_torch.render import cuda_tiled
-    from humaniflow_torch.utils.profiling import cuda_ms
+    from humaniflow_torch.utils.profiling import cuda_ms, sliver_case
 
     renderer = _vis_renderer("tiled")
     faces = renderer.dp["faces"]
@@ -1229,6 +1307,9 @@ def check_tiled_raster(smpl):
     sorted_faces = faces[cuda_tiled.tile_sort_order(sv[0], faces)].contiguous()
     cases = [(f"{B} posed bodies, tile-sorted faces", IMG, sv, sorted_faces)]
     cases += [(f"ragged faces at {img}²", img, *_tiled_ragged(img)) for img in (128, 384)]
+    # near-degenerate faces whose rounding claims pixels beyond their boxes:
+    # the cull inside the chunks must skip none that the formula keeps
+    cases.append((f"sliver stress, 2,400 faces at {IMG}²", IMG, *sliver_case(IMG)))
     for name, img, s, f in cases:
         got = cuda_tiled.rasterize_tiled(s, f, img)
         torch.cuda.synchronize()
@@ -1257,6 +1338,41 @@ def check_tiled_raster(smpl):
     return dict(name="tiled_raster", replaces="humaniflow_tpu/render/pallas_rasterizer.py:41", max_abs_err=0.0,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, ms_meshes=B, plain_ms_meshes=2,
                 live_pairs=live, all_pairs=pairs)
+
+
+def time_figure_launches(draw, renderer):
+    """K6 in a figure's own launches: CUDA events around each call of
+    rasterize_tiled that the tiled renderer makes in one draw (they also
+    span the wrapper's host time where the card waits on it), with each
+    launch's meshes and bound.  Returns [(meshes, ms, bound ms)]."""
+    import torch
+
+    from humaniflow_torch.render import renderer as renderer_module
+
+    real = renderer_module.rasterize_tiled
+    calls = []
+
+    def timed(screen, faces, img):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(screen, faces, img)
+        end.record()
+        calls.append((screen, faces, img, start, end))
+        return out
+
+    draw(renderer)  # warm-up
+    renderer_module.rasterize_tiled = timed
+    try:
+        draw(renderer)
+    finally:
+        renderer_module.rasterize_tiled = real
+    torch.cuda.synchronize()
+    out = []
+    for screen, faces, img, start, end in calls:
+        tests, _ = _coverage_work(screen, faces, img, 0)
+        nbytes = 4 * (screen.numel() + faces.numel()) + screen.shape[0] * img * img * 4 * 5
+        out.append((screen.shape[0], start.elapsed_time(end), _bound_ms(TILED_TEST_OPS * tests, nbytes)[0]))
+    return out
 
 
 def check_lbs_skin():
@@ -1476,7 +1592,9 @@ def optimise_and_visualise(model, smpl, cfg, pred):
                 raise AssertionError(f"{fig} ({name}) is not finite")
         _compare_renders(fig, recorded["tiled"], recorded["xla"])
         timings[fig] = {name: wall_ms(lambda: draw(r), 3 if name == "tiled" else 1) for name, r in renderers.items()}
-        print(f"{fig}: tiled (K6) {timings[fig]['tiled']:.2f} ms, exact scan {timings[fig]['xla']:.2f} ms")
+        timings[fig]["k6_launches"] = k6 = time_figure_launches(draw, renderers["tiled"])
+        print(f"{fig}: tiled (K6) {timings[fig]['tiled']:.2f} ms, exact scan {timings[fig]['xla']:.2f} ms; K6 in its "
+              f"{len(k6)} launches: " + ", ".join(f"{m} meshes {ms:.4f} ms (bound {bd:.4f})" for m, ms, bd in k6))
     return launches, timings
 
 
@@ -1756,6 +1874,7 @@ def _main() -> int:
     # ---- phase 11: training
     _set_fused(False)
     records["raster"] = check_raster(smpl, cfg)
+    check_smpl_verts_plans(smpl, records["smpl_verts"])
     records["smpl_verts_backward"] = check_smpl_backward(smpl)
     check_train_step_against_cpu(cfg)
     train_launches, _ = train_full_width(smpl, cfg)
@@ -1764,8 +1883,12 @@ def _main() -> int:
     # ---- phases 12-14: K6, K7, and predict → optimise → visualise
     records["tiled_raster"] = check_tiled_raster(smpl)
     records["lbs_skin"] = check_lbs_skin()
-    vis_launches, _ = optimise_and_visualise(model, smpl, cfg, pred)
+    vis_launches, vis_timings = optimise_and_visualise(model, smpl, cfg, pred)
     path_launches.update(vis_launches)
+    fig_k6 = [c for fig in ("point-estimate figure", "sample renders") for c in vis_timings[fig]["k6_launches"]]
+    records["tiled_raster"].update(figure_launches=[{"meshes": m, "ms": ms, "bound_ms": bd} for m, ms, bd in fig_k6],
+                                   figure_ms=sum(ms for _, ms, _ in fig_k6),
+                                   figure_bound_ms=sum(bd for _, _, bd in fig_k6))
     print(f"launches by path: {path_launches}")
 
     # ---- profiler measurements, last: a profiler session leaves the host
@@ -1780,6 +1903,7 @@ def _main() -> int:
     _set_fused(False)
     profile_optimise(model, smpl, pred)
     profile_smpl_backward(smpl, records["smpl_verts_backward"])
+    profile_kernel_device_times(smpl, records)
 
     kernels = []
     sources = {"smpl_verts": "csrc/smpl_lbs.cu", "smpl_moments": "csrc/smpl_lbs.cu", "coverage": "csrc/coverage.cu",

@@ -24,7 +24,9 @@ def main(argv=None):
     parser.add_argument("--pred_image_dir", "-I", type=str, required=True)
     parser.add_argument("--pred_output_dir", "-P", type=str, required=True)
     parser.add_argument("--opt_output_dir", "-S", type=str, required=True)
-    parser.add_argument("--checkpoint", "-C", type=str, required=True, help="the reference's HuManiFlow .tar")
+    parser.add_argument("--checkpoint", "-C", type=str, required=True,
+                        help="the reference's HuManiFlow .tar, or a checkpoint that train_humaniflow wrote "
+                             "(its best_params, else its params)")
     parser.add_argument("--cfg", type=str, default=None, help="yaml overrides of the default config")
     parser.add_argument("--optimise_cfg", type=str, default=None,
                         help="yaml overriding the optimisation config (LR, NUM_ITERS, LOSS_WEIGHTS, "

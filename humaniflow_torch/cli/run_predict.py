@@ -26,7 +26,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--image_dir", "-I", type=str, required=True)
     parser.add_argument("--save_dir", "-S", type=str, required=True)
-    parser.add_argument("--checkpoint", "-C", type=str, default=None, help="the reference's HuManiFlow .tar")
+    parser.add_argument("--checkpoint", "-C", type=str, default=None,
+                        help="the reference's HuManiFlow .tar, or a checkpoint that train_humaniflow wrote "
+                             "(its best_params, else its params)")
     parser.add_argument("--hrnet_checkpoint", type=str, default=None, help="the reference's HRNet-W48 .pth")
     parser.add_argument("--hrnet_dtype", choices=["bf16", "f32"], default="bf16",
                         help="HRNet convolution dtype (BatchNorm and heatmaps stay float32)")

@@ -5,7 +5,8 @@ The counterpart of `humaniflow_tpu/models/pallas_lbs.py`:
 
 * K2 `smpl_verts` (TPU: `_smpl_verts_kernel` via `smpl_verts_fused`):
   template + shape and pose blend shapes + linear blend skinning in one
-  pass, written as (B, 3, V) vertices.
+  pass, written as (B, 3, V) vertices; one thread per vertex, with a
+  group of rows per block that `forward_plan` chooses per call from (B, V).
 * K1 `smpl_moments` (TPU: `_smpl_moments_kernel` via
   `smpl_verts_moments_fused`): the same vertices for G groups of N samples,
   reduced inside the kernel to (Σx, Σx²) over each group, (G, 2, 3, V); the
@@ -42,6 +43,7 @@ shapedirs_cm (NB, 3, V), posedirs_cm (207, 3, V), lbs_weights (V, 24).
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,6 +54,22 @@ LAUNCHES = {"smpl_verts": 0, "smpl_moments": 0, "smpl_verts_backward": 0, "lbs_s
 NUM_JOINTS = 24
 NUM_POSE_FEATURES = 207
 MAX_BETAS = 16  # csrc/smpl_lbs.cu kMaxBetas
+# K2's forward row groups, (rows, vertices) a block, in csrc/smpl_lbs.cu's
+# plan order: the more rows a block, the fewer times the basis is read.
+FORWARD_PLANS = ((16, 128), (8, 128), (4, 128))
+
+
+def forward_plan(b: int, v: int, sms: int = 132) -> int:
+    """The row group of K2's forward for b rows of v vertices on a card of
+    `sms` SMs: the first (largest) of FORWARD_PLANS whose grid gives each SM
+    three blocks, else the smallest.  A larger group reads the basis fewer
+    times; a grid that leaves SMs short of blocks leaves the loads' latency
+    unhidden (utils/profiling.py --plans times every group at the paths'
+    row counts)."""
+    for i, (rows, verts) in enumerate(FORWARD_PLANS):
+        if -(-v // verts) * -(-b // rows) >= 3 * sms:
+            return i
+    return len(FORWARD_PLANS) - 1
 
 
 def _posed_plain(betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm):
@@ -122,7 +140,7 @@ def _check(rows_shape, a12, betas, pose_feature, v_template_cm, shapedirs_cm, po
 
 
 _LAUNCHERS = {  # C entry point → (csrc source, argument types)
-    "smpl_verts_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "smpl_verts_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "smpl_moments_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "lbs_skin_launch": ("lbs_skin", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
     "smpl_verts_bwd_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2
@@ -136,6 +154,11 @@ def _launcher(name: str):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(name: str, tensors, out, ints):
@@ -156,10 +179,16 @@ def smpl_verts(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_c
     refuse_grad("K2 (smpl_verts)", *args)
     b = betas.shape[0]
     _check((b,), *args)
-    v = v_template_cm.shape[1]
-    out = torch.empty((b, 3, v), dtype=torch.float32, device=a12.device)
-    _launch("smpl_verts_launch", args, out, (b, v, betas.shape[1]))
+    out = _smpl_verts_launch(args, forward_plan(b, v_template_cm.shape[1], _sm_count(a12.device)))
     LAUNCHES["smpl_verts"] += 1
+    return out
+
+
+def _smpl_verts_launch(args, plan: int):
+    """Launch K2's forward on checked arguments with the row group FORWARD_PLANS[plan]."""
+    b, v = args[1].shape[0], args[3].shape[1]
+    out = torch.empty((b, 3, v), dtype=torch.float32, device=args[0].device)
+    _launch("smpl_verts_launch", args, out, (b, v, args[1].shape[1], plan))
     return out
 
 

@@ -21,6 +21,14 @@ the culling as a per-tile live mask, under which a NaN depth never wins
 (the plain scan lets it poison its chunk's minimum).  On finite input the
 two agree.
 
+Inside a walked chunk K6 also skips, per warp, the faces that provably cover
+no pixel centre of the warp's 4×8 pixel sub-block, by the per-face linear
+tests `cull_constants` computes and `may_cover` evaluates (their plain
+versions here, the same formulas and margins as csrc/tiled_raster.cu): a
+face is skipped only where one of its three barycentrics, as the per-pixel
+float32 formula rounds it, is negative at every centre of the sub-block, so
+the fragments stay the twin's bit for bit.
+
 `rasterize_tiled` computes the twin when the tensors lie on the CPU.  For
 CUDA tensors it launches K6, or raises on a wrong dtype, device, layout or
 shape; it never falls back.  K6 has no backward: on CUDA the wrapper raises
@@ -41,7 +49,15 @@ LAUNCHES = {"tiled_raster": 0}
 BLOCK_ROWS = 32  # the culling tile
 BLOCK_COLS = 128
 FACE_CHUNK = 64
+SUB_ROWS, SUB_COLS = 4, 8  # a warp's pixel sub-block in K6
 _PACK = 16  # floats per packed face in K6's scratch
+_CULL = 12  # floats of cull constants per face in K6's scratch
+# Margins of the cull (derived in csrc/tiled_raster.cu): relative to the
+# bound on the per-pixel formula's magnitudes, and absolute floors that keep
+# a skipped barycentric away from underflow to -0.
+_REL = 2.0 ** -17
+_FLOOR, _FLOOR_W = 2.0 ** -100, 2.0 ** -84
+_LIMIT = 2.0 ** 40  # coordinates beyond this (or |area| beyond 2**40) are never skipped
 
 
 def sort_faces_by_row(verts_rest: np.ndarray, faces: np.ndarray) -> np.ndarray:
@@ -112,6 +128,70 @@ def rasterize_tiled_plain(verts_screen: torch.Tensor, faces: torch.Tensor, image
     return zbuffer_scan(verts_screen, faces, image_size, live_fn=live_fn)
 
 
+def cull_constants(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int) -> torch.Tensor:
+    """K6's per-face cull constants, (M, F, 12) float32: for each of the
+    three tests t (w0, w1, w2) a linear function (α_t, β_t, k_t) of a 4×8
+    sub-block's centre, laid out [α0 β0 k0 α1 β1 k1 α2 β2 k2 0 0 0].  A face
+    that is not inside anywhere (|area| ≤ 1e-9, NaN, an index outside
+    [0, V)) gets k = −1 (always skipped), one beyond the float32-safe range
+    k = +inf (never skipped).  Computed in float64 from the float32 values
+    the per-pixel formula reads, in the kernel's order of operations."""
+    m, v = verts_screen.shape[:2]
+    fl = faces.to(device=verts_screen.device, dtype=torch.long)
+    in_range = ((fl >= 0) & (fl < v)).all(dim=-1)
+    tri = verts_screen.to(torch.float32)[:, fl.clamp(0, v - 1)]  # (M, F, 3, 3)
+    x0, y0, x1, y1, x2, y2 = (tri[..., i, j] for i in range(3) for j in range(2))
+    dx0, dy0, dx1, dy1 = x2 - x1, y2 - y1, x0 - x2, y0 - y2
+    area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    valid = (torch.abs(area) > 1e-9) & in_range
+    inv = torch.where(valid, 1.0 / torch.where(valid, area, torch.ones_like(area)), torch.zeros_like(area))
+    X1, Y1, X2, Y2, DX0, DY0, DX1, DY1, INV = (t.double() for t in (x1, y1, x2, y2, dx0, dy0, dx1, dy1, inv))
+    ai = INV.abs()
+    ok = (valid & (ai >= 1.0 / _LIMIT) & (X1.abs() <= _LIMIT) & (Y1.abs() <= _LIMIT) & (X2.abs() <= _LIMIT)
+          & (Y2.abs() <= _LIMIT) & (DX0.abs() <= 2 * _LIMIT) & (DY0.abs() <= 2 * _LIMIT)
+          & (DX1.abs() <= 2 * _LIMIT) & (DY1.abs() <= 2 * _LIMIT))
+    s = torch.where(INV > 0, 1.0, -1.0).double()
+    h1, w1 = float(image_size + 1), float(image_size + 1)
+    hx, hy = (SUB_COLS - 1) / 2, (SUB_ROWS - 1) / 2
+    c0 = DY0 * X1 - DX0 * Y1
+    c1 = DY1 * X2 - DX1 * Y2
+    a0 = DX0.abs() * (h1 + Y1.abs()) + DY0.abs() * (w1 + X1.abs())
+    a1 = DX1.abs() * (h1 + Y2.abs()) + DY1.abs() * (w1 + X2.abs())
+    f0 = _FLOOR * ((1.0 + DX0.abs()) + DY0.abs()) + _FLOOR_W
+    f1 = _FLOOR * ((1.0 + DX1.abs()) + DY1.abs()) + _FLOOR_W
+    k0 = (((s * c0) + DY0.abs() * hx) + DX0.abs() * hy) + (_REL * a0 + f0)
+    k1 = (((s * c1) + DY1.abs() * hx) + DX1.abs() * hy) + (_REL * a1 + f1)
+    al2 = (INV * (DY0 + DY1)).float().double()
+    be2 = (-(INV * (DX0 + DX1))).float().double()
+    g2 = 1.0 - INV * (c0 + c1)
+    sumd = (((1.0 + DX0.abs()) + DY0.abs()) + DX1.abs()) + DY1.abs()
+    m2 = _REL * (1.0 + ai * (a0 + a1)) + _FLOOR * ((1.0 + ai) * sumd)
+    k2 = ((g2 + al2.abs() * hx) + be2.abs() * hy) + m2
+    zero = torch.zeros_like(X1)
+    q = torch.stack([(-s) * DY0, s * DX0, k0, (-s) * DY1, s * DX1, k1, al2, be2, k2, zero, zero, zero], dim=-1)
+    never = torch.tensor([0.0, 0.0, float("inf")] * 3 + [0.0] * 3, dtype=torch.float64, device=q.device)
+    always = torch.tensor([0.0, 0.0, -1.0] * 3 + [0.0] * 3, dtype=torch.float64, device=q.device)
+    q = torch.where(ok[..., None], q, never)
+    return torch.where(valid[..., None], q, always).float()
+
+
+def may_cover(consts: torch.Tensor, row0, col0) -> torch.Tensor:
+    """Plain version of K6's cull: False only where the face provably covers
+    no pixel centre of the 4×8 sub-block whose top-left pixel is
+    (row0, col0), i.e. where one test t has α_t·cx + (β_t·cy + k_t) < 0 at
+    the sub-block's centre (cx, cy), evaluated in float32 with one rounding
+    per operation, as the kernel does.  consts (..., 12) from cull_constants;
+    row0 and col0 broadcast against consts[..., 0]."""
+    cx = torch.as_tensor(col0, device=consts.device).to(torch.float32) + SUB_COLS / 2
+    cy = torch.as_tensor(row0, device=consts.device).to(torch.float32) + SUB_ROWS / 2
+    skip = torch.zeros(torch.broadcast_shapes(consts.shape[:-1], cx.shape, cy.shape), dtype=torch.bool,
+                       device=consts.device)
+    for t in range(3):
+        al, be, k = consts[..., 3 * t], consts[..., 3 * t + 1], consts[..., 3 * t + 2]
+        skip |= al * cx + (be * cy + k) < 0
+    return ~skip
+
+
 def _check(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int):
     """Raise unless K6 can take these arguments."""
     dev = verts_screen.device
@@ -133,7 +213,7 @@ def _check(verts_screen: torch.Tensor, faces: torch.Tensor, image_size: int):
 
 def _launcher():
     fn = load_library("tiled_raster").tiled_raster_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -157,14 +237,15 @@ def rasterize_tiled(verts_screen: torch.Tensor, faces: torch.Tensor, image_size:
     c = -(-f // FACE_CHUNK)
     dev = verts_screen.device
     tri = torch.empty((m, c * FACE_CHUNK, _PACK), dtype=torch.float32, device=dev)
+    cull = torch.empty((m, c * FACE_CHUNK, _CULL), dtype=torch.float32, device=dev)
     bounds = torch.empty((m, c, 4), dtype=torch.float32, device=dev)
     depth = torch.empty((m, image_size, image_size), dtype=torch.float32, device=dev)
     face_idx = torch.empty((m, image_size, image_size), dtype=torch.int32, device=dev)
     bary = torch.empty((m, image_size, image_size, 3), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launcher()(
-        verts_screen.data_ptr(), faces.data_ptr(), tri.data_ptr(), bounds.data_ptr(), depth.data_ptr(),
-        face_idx.data_ptr(), bary.data_ptr(), m, v, f, image_size, image_size, stream,
+        verts_screen.data_ptr(), faces.data_ptr(), tri.data_ptr(), cull.data_ptr(), bounds.data_ptr(),
+        depth.data_ptr(), face_idx.data_ptr(), bary.data_ptr(), m, v, f, image_size, image_size, stream,
     )
     if rc != 0:
         raise RuntimeError(f"tiled_raster_launch failed with CUDA error {rc}")

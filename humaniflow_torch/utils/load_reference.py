@@ -16,8 +16,10 @@ what changes is the naming and, for the HuManiFlow model, the stacking:
 * the per-part coupling hypernets `pose_so3flow_transform_modules.{part·2 +
   m}.nn.layers.{l}` → row `part` of the m-th coupling's stacked weights.
 
-Both loaders are strict: a tensor the port needs that the file lacks, or a
-tensor in the file that the map does not use (BatchNorm's
+`load_humaniflow_checkpoint` also takes the port's own training
+checkpoints (`pipelines/train.py` through `utils/checkpoints.py`), which
+need no mapping.  Both loaders are strict: a tensor the port needs that the
+file lacks, or a tensor in the file that the map does not use (BatchNorm's
 `num_batches_tracked` aside), raises KeyError; a shape mismatch raises
 ValueError.  Checkpoints are pickles: load only files you trust.
 """
@@ -35,7 +37,11 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """The state dict of a reference checkpoint on the CPU: a `.tar` training
     checkpoint's `best_model_state_dict`, else its `model_state_dict`, else
     the file itself as a raw state dict (`.pth`)."""
-    blob = torch.load(path, map_location="cpu", weights_only=False)
+    return _reference_state_dict(torch.load(path, map_location="cpu", weights_only=False))
+
+
+def _reference_state_dict(blob) -> Dict[str, torch.Tensor]:
+    """load_torch_state_dict of an already loaded file."""
     if isinstance(blob, dict) and "best_model_state_dict" in blob:
         sd = blob["best_model_state_dict"]
     elif isinstance(blob, dict) and "model_state_dict" in blob:
@@ -67,11 +73,15 @@ class _Reader:
 
 def _load_state(module: torch.nn.Module, state: Dict[str, torch.Tensor]):
     """Copy `state` into `module`: every tensor of the module except
-    BatchNorm's num_batches_tracked must be given, with its shape."""
+    BatchNorm's num_batches_tracked must be given, with its shape, and no
+    other."""
     own = module.state_dict()
     missing = sorted(k for k in own if not k.endswith("num_batches_tracked") and k not in state)
     if missing:
         raise KeyError(f"no checkpoint tensor maps onto {missing[:10]}")
+    extra = sorted(k for k in state if k not in own)
+    if extra:
+        raise KeyError(f"the checkpoint has tensors the port does not use: {extra[:10]}")
     for k, v in state.items():
         if tuple(own[k].shape) != tuple(v.shape):
             raise ValueError(f"{k}: checkpoint shape {tuple(v.shape)} vs port {tuple(own[k].shape)}")
@@ -128,9 +138,19 @@ def humaniflow_state_from_reference(sd: Dict[str, torch.Tensor], model: Humanifl
 
 
 def load_humaniflow_checkpoint(path: str, model: HumaniflowModel) -> HumaniflowModel:
-    """Load the reference's HuManiFlow `.tar` (or state-dict file) into
-    `model`, in place; returns it."""
-    _load_state(model, humaniflow_state_from_reference(load_torch_state_dict(path), model))
+    """Load a HuManiFlow checkpoint into `model`, in place; returns it.
+
+    A checkpoint of the port's own `train_humaniflow` (utils/checkpoints.py,
+    recognised by its `best_params` or `params` key) gives its `best_params`,
+    else its `params`, already in the port's names, as the JAX CLIs take
+    their own checkpoints.  Any other file is the reference's `.tar` (or a
+    state-dict file), whose names are mapped onto the port's."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and ("best_params" in blob or "params" in blob):
+        state = blob.get("best_params", blob.get("params"))
+        _load_state(model, {k: v.detach().cpu() for k, v in state.items()})
+    else:
+        _load_state(model, humaniflow_state_from_reference(_reference_state_dict(blob), model))
     return model
 
 

@@ -4,6 +4,8 @@ the card.
     python -m humaniflow_torch.utils.profiling [--batch 32] [--samples 100] [--fused-level]
     python -m humaniflow_torch.utils.profiling --protocol ssp3d|3dpw [--batch 32] [--fused-level]
     python -m humaniflow_torch.utils.profiling --train [--batch 72]
+    python -m humaniflow_torch.utils.profiling --compare PARENT_ROOT
+    python -m humaniflow_torch.utils.profiling --plans
 
 Builds the default model (seeded random weights) and synthetic SMPL at 6890
 vertices.  Without --protocol it prints, for the model forward and for the
@@ -29,6 +31,14 @@ With --train it prints the same for one synthetic-data batch (the training
 renderer: kernel K4, per-face texels, culling) and one train step (forward,
 backward through K2's gradient, Adam) at the default training config, with
 poses, textures and backgrounds staged on the card.
+
+With --compare it times kernels K6, K2's forward (at the paths' five row
+counts), K1 and K2's backward kernel of another checkout (PARENT_ROOT, e.g.
+the parent commit unpacked with `git archive` into a directory that
+.gitignore lists) and of this one, in turns on one card, on the same
+inputs: CUDA-event ms per call and the kernels' device ms per call
+(torch.profiler), one JSON line per turn.  With --plans it times K2's
+forward at those row counts through each of its row groups.
 
 --fused-level sets HFT_FUSED_LEVEL=1 for the run, so that the flow pass
 goes through the fused level kernel K5; run the script with and without it
@@ -225,6 +235,196 @@ def coverage_cases(device="cuda") -> dict:
     }
 
 
+def sliver_case(img: int, device="cuda", seed: int = 0):
+    """Near-degenerate faces for K6's cull (csrc/tiled_raster.cu): two
+    meshes (the second the first with x and y swapped) of 2,400 faces with
+    three vertices each and random depths, (verts_screen (2, 7200, 3)
+    float32, faces (2400, 3) int32).  Six families of 400: slivers lying on
+    lines of slope ±1 and of slopes 1/4 to 3 through pixel centres, their
+    third vertex 1e-5 px off the line (the rounding of their edge functions
+    claims centres beyond their tips, outside their boxes); needles (two
+    vertices within 1e-3 px); faces whose float32 area lies just above the
+    1e-9 validity threshold; random slivers 1e-7 to 1e-2 px thick; and
+    ordinary faces over them, so that the depth test has work to do."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    k, lo, hi = 400, 0.1 * img, 0.9 * img
+
+    def centre(n):
+        return np.floor(rng.uniform(lo, hi, size=(n, 2))) + 0.5
+
+    def on_line(slope):
+        p0 = centre(k)
+        length = rng.integers(4, max(5, img // 5), size=(k, 1)).astype(np.float64)
+        d = np.concatenate([np.ones((k, 1)), slope[:, None]], -1) * length
+        t = rng.uniform(0.2, 0.8, size=(k, 1))
+        p2 = p0 + t * d + np.stack([rng.normal(scale=1e-5, size=k), np.zeros(k)], -1)
+        return np.stack([p0, p0 + d, p2], 1)
+
+    fam = [on_line(rng.choice([-1.0, 1.0], size=k)), on_line(rng.choice([0.25, 1 / 3, 0.5, 2.0, 3.0], size=k))]
+    p0 = centre(k) + rng.uniform(-0.5, 0.5, size=(k, 2))
+    fam.append(np.stack([p0, p0 + rng.normal(scale=1e-3, size=(k, 2)), p0 + rng.normal(scale=0.1 * img, size=(k, 2))],
+                        1))
+    tiny = []
+    while len(tiny) < k:  # float32 |area| in (1e-9, 1e-7]
+        p = (centre(1) + rng.uniform(-0.5, 0.5, size=(1, 2)) + rng.normal(scale=10 ** rng.uniform(-5, -3),
+                                                                          size=(3, 2))).astype(np.float32)
+        a = (p[1, 0] - p[0, 0]) * (p[2, 1] - p[0, 1]) - (p[2, 0] - p[0, 0]) * (p[1, 1] - p[0, 1])
+        if 1e-9 < abs(float(a)) <= 1e-7:
+            tiny.append(p)
+    fam.append(np.stack(tiny))
+    ang = rng.uniform(0, 2 * np.pi, size=(k, 1))
+    d = np.concatenate([np.cos(ang), np.sin(ang)], -1) * rng.uniform(3, 0.3 * img, size=(k, 1))
+    nrm = np.concatenate([-np.sin(ang), np.cos(ang)], -1) * 10 ** rng.uniform(-7, -2, size=(k, 1))
+    p0 = centre(k) + rng.uniform(-0.5, 0.5, size=(k, 2))
+    fam.append(np.stack([p0, p0 + d, p0 + rng.uniform(0.1, 0.9, size=(k, 1)) * d + nrm], 1))
+    p0 = centre(k)
+    fam.append(p0[:, None] + rng.normal(scale=6.0, size=(k, 3, 2)))
+    xy = np.concatenate(fam).astype(np.float32)  # (F, 3, 2)
+    f = xy.shape[0]
+    z = rng.uniform(size=(f, 3, 1)).astype(np.float32)
+    verts = np.concatenate([xy, z], -1).reshape(1, 3 * f, 3)
+    verts = np.concatenate([verts, verts[..., [1, 0, 2]]])
+    return (torch.tensor(verts, dtype=torch.float32, device=device),
+            torch.arange(3 * f, dtype=torch.int32, device=device).reshape(f, 3))
+
+
+def load_checkout(root: str, name: str):
+    """The humaniflow_torch package of the checkout at `root`, imported under
+    the module name `name`, so that two versions of the kernels can be timed
+    in one process (each builds its sources into its own checkout)."""
+    import importlib.util
+
+    init = os.path.join(os.path.abspath(root), "humaniflow_torch", "__init__.py")
+    spec = importlib.util.spec_from_file_location(name, init, submodule_search_locations=[os.path.dirname(init)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+K2_ROWS = (32, 72, 320, 576, 3200)  # K2's forward rows on the paths
+K2_BACKWARD_ROWS = (32, 72, 576)
+
+
+def kernel_timing_inputs(seed: int = 0) -> dict:
+    """Inputs at the paths' shapes on the card: K6's 32 posed bodies at 256²
+    as the visualisation renders them (tile-sorted DensePose faces), K2's
+    (B, V = 6890) arguments at K2_ROWS, K1's at (32, 100), and cotangents
+    for K2's backward."""
+    import math
+
+    import torch
+
+    from ..models import smpl_forward, synthetic_smpl
+    from ..models.smpl import _kernel_inputs
+    from ..ops import aa_rotate_translate_points, so3_exp
+    from ..render import TexturedIUVRenderer
+    from ..render.cuda_tiled import tile_sort_order
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    smpl = synthetic_smpl(num_verts=6890)
+    renderer = TexturedIUVRenderer(img_wh=256, projection_type="orthographic", rasterizer="tiled")
+    b = 32
+    with torch.inference_mode():
+        pose = so3_exp(0.25 * torch.randn((b, 24, 3), generator=g, device="cuda"))
+        verts = smpl_forward(smpl, torch.randn((b, 10), generator=g, device="cuda"), pose[:, 1:],
+                             pose[:, 0])["vertices"]
+        verts = aa_rotate_translate_points(verts, torch.tensor([1.0, 0.0, 0.0], device="cuda"), math.pi,
+                                           torch.zeros(3, device="cuda"))
+        cam_t = torch.cat([0.05 * (2 * torch.rand((b, 2), generator=g, device="cuda") - 1),
+                           torch.full((b, 1), 2.5, device="cuda")], -1)
+        sv = renderer._screen_verts(verts[:, renderer.dp["vertex_map"]], cam_t,
+                                    torch.full((b, 2), 0.9, device="cuda")).contiguous()
+    faces = renderer.dp["faces"]
+    out = {"k6": (sv, faces[tile_sort_order(sv[0], faces)].contiguous(), 256)}
+
+    def args(rows):
+        betas = torch.randn((rows, 10), generator=g, device="cuda")
+        rots = so3_exp(0.4 * torch.randn((rows, 24, 3), generator=g, device="cuda"))
+        _, a12, pf = _kernel_inputs(smpl, betas, rots[:, 1:], rots[:, 0])
+        return (a12.contiguous(), betas, pf.contiguous(), smpl.v_template_cm, smpl.shapedirs_cm, smpl.posedirs_cm,
+                smpl.lbs_weights)
+
+    out["k2"] = {rows: args(rows) for rows in K2_ROWS}
+    a = args(32 * 100)
+    out["k1"] = tuple(t.reshape(32, 100, *t.shape[1:]) for t in a[:3]) + a[3:]
+    out["k2_grad"] = {rows: torch.randn((rows, 3, 6890), generator=g, device="cuda") for rows in K2_BACKWARD_ROWS}
+    return out
+
+
+def time_kernels(pkg, inputs: dict, iters: int = 20, only: str = "") -> dict:
+    """{kernel and shape: (CUDA-event ms per call over `iters` calls, device
+    ms per call from torch.profiler)} of K6, K2's forward, K1 and K2's
+    backward kernel through the wrappers of package `pkg` (a
+    humaniflow_torch, possibly another checkout's from load_checkout), those
+    whose name starts with `only`.  The event times include the wrapper's
+    host time between launches; the device times are the kernels' own."""
+    import importlib
+
+    lbs = importlib.import_module(f"{pkg.__name__}.models.cuda_lbs")
+    tiled = importlib.import_module(f"{pkg.__name__}.render.cuda_tiled")
+    calls = {"K6 B=32 256²": lambda: tiled.rasterize_tiled(*inputs["k6"])}
+    for rows, a in inputs["k2"].items():
+        calls[f"K2 forward rows={rows}"] = lambda a=a: lbs.smpl_verts(*a)
+    calls["K1 G=32 N=100"] = lambda: lbs.smpl_moments(*inputs["k1"])
+    for rows, grad in inputs["k2_grad"].items():
+        a = inputs["k2"][rows]
+        calls[f"K2 backward kernel rows={rows}"] = (
+            lambda a=a, grad=grad: lbs.smpl_verts_backward_vertex(grad, True, True, *a))
+    return {name: (cuda_ms(fn, iters), kernel_device_ms(fn, "", iters)) for name, fn in calls.items()
+            if name.startswith(only)}
+
+
+def time_forward_plans(iters: int = 20) -> dict:
+    """K2's forward at each of the paths' row counts (K2_ROWS) through every
+    row group of models/cuda_lbs.py::FORWARD_PLANS, not only the one
+    forward_plan picks: {(rows, plan): (CUDA-event ms, device ms)} per call, printed as
+    one JSON line per row count."""
+    import json
+
+    from ..models import cuda_lbs
+
+    inputs = kernel_timing_inputs()["k2"]
+    out = {}
+    for rows, args in inputs.items():
+        for plan in range(len(cuda_lbs.FORWARD_PLANS)):
+            fn = lambda a=args, p=plan: cuda_lbs._smpl_verts_launch(a, p)  # noqa: E731
+            out[rows, plan] = (cuda_ms(fn, iters), kernel_device_ms(fn, "smpl_verts_kernel", iters))
+        print(json.dumps({"rows": rows, "picked": cuda_lbs.forward_plan(rows, 6890),
+                          "ms by plan": {f"{p} {cuda_lbs.FORWARD_PLANS[p]}": [round(x, 5) for x in out[rows, p]]
+                                         for p in range(len(cuda_lbs.FORWARD_PLANS))}}))
+    return out
+
+
+def compare_checkouts(parent_root: str, turns: str = "pccp", only: str = "") -> dict:
+    """K6, K2's forward, K1 and K2's backward (those whose name starts with
+    `only`) of the parent checkout at `parent_root` and of this one, timed
+    in turns on one card (p = parent, c = change; default parent, change,
+    change, parent) on the same inputs; prints one JSON line per turn and
+    returns {label: [results per turn]}."""
+    import importlib
+    import json
+    import subprocess
+
+    import torch
+
+    here = importlib.import_module(__package__.rsplit(".", 1)[0])  # this checkout's humaniflow_torch
+    pkgs = {"p": load_checkout(parent_root, "parent_humaniflow_torch"), "c": here}
+    inputs = kernel_timing_inputs()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    out = {"parent": [], "change": []}
+    for t in turns:
+        label = "parent" if t == "p" else "change"
+        res = time_kernels(pkgs[t], inputs, only=only)
+        torch.cuda.synchronize()
+        out[label].append(res)
+        print(json.dumps({"turn": label, "card": card, "ms": {k: [round(x, 5) for x in v] for k, v in res.items()}}))
+    return out
+
+
 def staged_batch(dataset, b: int, device) -> dict:
     """The dataset's first batch of b items as the eval step takes it, with
     every array on `device` (strings dropped)."""
@@ -341,6 +541,12 @@ def main(argv=None) -> int:
     parser.add_argument("--samples", type=int, default=100)
     parser.add_argument("--protocol", choices=("ssp3d", "3dpw"), default=None)
     parser.add_argument("--train", action="store_true", help="profile one synthetic batch and one train step")
+    parser.add_argument("--compare", metavar="PARENT_ROOT", default=None,
+                        help="time K6, K2 (forward and backward kernel) and K1 of the checkout at PARENT_ROOT and "
+                             "of this one in turns, parent, change, change, parent")
+    parser.add_argument("--only", default="", help="with --compare: only the kernels whose name starts so")
+    parser.add_argument("--plans", action="store_true",
+                        help="time K2's forward through every row group at the paths' row counts")
     parser.add_argument("--fused-level", action="store_true",
                         help="run the flow through the fused level kernel (HFT_FUSED_LEVEL=1)")
     args = parser.parse_args(argv)
@@ -352,6 +558,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profiling needs a CUDA device", file=sys.stderr)
         return 1
+    if args.compare is not None:
+        compare_checkouts(args.compare, only=args.only)
+        return 0
+    if args.plans:
+        time_forward_plans()
+        return 0
     batch = args.batch or (72 if args.train else 32)
     if args.protocol is not None:
         protocol_breakdown(args.protocol, batch)

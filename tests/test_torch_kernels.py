@@ -59,6 +59,21 @@ def test_smpl_verts_kernel_matches_plain(rows, v):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("v", [1000, 6890])
+@pytest.mark.parametrize("rows", [1, 17, 32, 33, 72, 320, 576, 3232])
+def test_smpl_verts_kernel_matches_plain_at_every_plan(rows, v):
+    """K2's forward at the paths' row counts and ragged ones, each through
+    the tile models/cuda_lbs.py::forward_plan picks for it, one launch."""
+    _require_cuda()
+    args = _kernel_inputs_cuda((rows,), v, seed=rows)
+    before = cuda_lbs.LAUNCHES["smpl_verts"]
+    got = cuda_lbs.smpl_verts(*args)
+    torch.cuda.synchronize()
+    assert cuda_lbs.LAUNCHES["smpl_verts"] == before + 1
+    torch.testing.assert_close(got, cuda_lbs.smpl_verts_plain(*args), rtol=0, atol=VERT_ATOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,v", [((3, 7), 1000), ((32, 100), 6890)])
 def test_smpl_moments_kernel_matches_plain(rows, v):
     _require_cuda()
@@ -484,6 +499,29 @@ def test_tiled_raster_kernel_matches_plain_bit_for_bit(img):
         assert torch.equal(got.depth, want.depth)
         assert torch.equal(got.bary, want.bary)
         assert bool(got.mask.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img", [128, 256, 384])
+def test_tiled_raster_kernel_matches_plain_on_slivers(img):
+    """utils/profiling.py::sliver_case: 2,400 near-degenerate faces (slivers
+    through pixel centres whose rounding claims pixels beyond their tips,
+    needles, areas just above 1e-9) on two meshes, bit for bit: the kernel's
+    cull skips no face the twin's formula finds inside."""
+    _require_cuda()
+    from humaniflow_torch.render import cuda_tiled
+    from humaniflow_torch.utils.profiling import sliver_case
+
+    sv, faces = sliver_case(img)
+    before = cuda_tiled.LAUNCHES["tiled_raster"]
+    got = cuda_tiled.rasterize_tiled(sv, faces, img)
+    torch.cuda.synchronize()
+    assert cuda_tiled.LAUNCHES["tiled_raster"] == before + 1
+    want = cuda_tiled.rasterize_tiled_plain(sv, faces, img)
+    assert torch.equal(got.face_idx, want.face_idx)
+    assert torch.equal(got.depth, want.depth)
+    assert torch.equal(got.bary, want.bary)
+    assert bool(got.mask.any())
 
 
 @pytest.mark.cuda

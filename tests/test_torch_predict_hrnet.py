@@ -1,7 +1,9 @@
 """The port's uncropped-image predict path against humaniflow_tpu on the CPU:
 the crop ops, the keypoint-box helpers, the HRNet stage, the whole slice
 (uncropped images → HRNet keypoints → proxy crop → predict with the fused
-flow level on both sides), the reference `.tar` loader and the predict CLI."""
+flow level on both sides), the reference `.tar` loader, the predict CLI,
+and the port's own training checkpoints through the predict and optimise
+CLIs."""
 
 import dataclasses
 import importlib
@@ -296,13 +298,13 @@ def test_load_humaniflow_checkpoint_matches_the_jax_converter(slice_models, tmp_
         humaniflow_state_from_reference({**best, "image_encoder.fc.weight": torch.zeros(2)}, fresh)
 
 
-def test_predict_cli_writes_predictions(slice_models, tmp_path, monkeypatch):
-    """`python -m humaniflow_torch.cli.run_predict` on two tiny PNGs, with
-    fabricated checkpoints and SMPL files under a temporary model-files
-    directory, on the CPU: one prediction .npz per image."""
+def _cli_files(slice_models, tmp_path, monkeypatch):
+    """Fabricated CLI inputs under tmp_path: SMPL files in a temporary
+    model-files directory, the reference's `.tar` and `.pth` holding the
+    slice's weights, two tiny PNGs and a 32²-proxy config; returns
+    (the .tar, the .pth, the image directory, the config)."""
     import cv2
 
-    from humaniflow_torch.cli import run_predict
     from humaniflow_torch.configs import paths
     from humaniflow_torch.utils.load_reference import _hrnet_reference_name
 
@@ -324,13 +326,24 @@ def test_predict_cli_writes_predictions(slice_models, tmp_path, monkeypatch):
     torch.save({f"{_hrnet_reference_name(k.rsplit('.', 1)[0])}.{k.rsplit('.', 1)[1]}": v
                 for k, v in thr.state_dict().items()}, pth)
 
-    img_dir, out_dir = tmp_path / "images", tmp_path / "out"
+    img_dir = tmp_path / "images"
     img_dir.mkdir()
     rng = np.random.default_rng(6)
     for name, (h, w) in (("a.png", (48, 40)), ("b.png", (36, 52))):
         cv2.imwrite(str(img_dir / name), rng.integers(0, 255, size=(h, w, 3)).astype(np.uint8))
     cfg = tmp_path / "small.yaml"
     cfg.write_text(f"DATA:\n  PROXY_REP_SIZE: {PROXY}\n")
+    return tar, pth, img_dir, cfg
+
+
+def test_predict_cli_writes_predictions(slice_models, tmp_path, monkeypatch):
+    """`python -m humaniflow_torch.cli.run_predict` on two tiny PNGs, with
+    fabricated checkpoints and SMPL files under a temporary model-files
+    directory, on the CPU: one prediction .npz per image."""
+    from humaniflow_torch.cli import run_predict
+
+    tar, pth, img_dir, cfg = _cli_files(slice_models, tmp_path, monkeypatch)
+    out_dir = tmp_path / "out"
     run_predict.main(["-I", str(img_dir), "-S", str(out_dir), "-C", tar, "--hrnet_checkpoint", pth,
                       "--hrnet_dtype", "f32", "-N", "2", "--cfg", str(cfg), "--device", "cpu"])
     assert sorted(os.listdir(out_dir)) == ["a_pred.npz", "b_pred.npz"]
@@ -340,3 +353,78 @@ def test_predict_cli_writes_predictions(slice_models, tmp_path, monkeypatch):
         assert d["cropped_image"].shape == (PROXY, PROXY, 3) and d["hrnet_joints2D"].shape == (17, 2)
         for k in d.files:
             assert np.isfinite(d[k]).all(), k
+
+
+def _train_checkpoint(save_dir, best, params):
+    """A checkpoint in train_humaniflow's layout (pipelines/train.py), saved
+    through utils/checkpoints.save_checkpoint; returns its path."""
+    from humaniflow_torch.utils.checkpoints import save_checkpoint
+
+    state = {"epoch": 2, "best_epoch": 1, "best_epoch_val_metrics": {"PVE-SC": 0.0712}, "params": params,
+             "opt_state": {"state": {}, "param_groups": []}}
+    if best is not None:
+        state["best_params"] = best
+    return save_checkpoint(str(save_dir), "epoch_000002", state)
+
+
+def test_load_humaniflow_checkpoint_takes_the_ports_own_checkpoints(slice_models, tmp_path):
+    """A checkpoint that train_humaniflow writes loads as its best_params
+    (else its params), tensor for tensor, and predicts as the model it was
+    taken from, here the model loaded from a reference `.tar`, which still
+    loads; a port checkpoint with a tensor too many raises."""
+    (jm, jparams, _, _, _), (_, tcfg, _) = slice_models
+    ref_tar = str(tmp_path / "humaniflow_weights.tar")
+    torch.save({"best_model_state_dict": _reference_humaniflow_state_dict(jparams, jm)}, ref_tar)
+    tm = load_humaniflow_checkpoint(ref_tar, TorchModel(tcfg.MODEL, device="cpu"))
+    best = tm.state_dict()
+    perturbed = {k: v * 1.5 if v.is_floating_point() else v for k, v in best.items()}
+    proxy = torch.from_numpy(np.random.default_rng(4).uniform(size=(2, PROXY, PROXY, 18)).astype(np.float32))
+
+    def predict(model):
+        with torch.no_grad():
+            return model.apply(proxy, num_samples=2, generator=torch.Generator().manual_seed(5))
+
+    want = predict(tm)
+    cases = {"best_params": _train_checkpoint(tmp_path / "a", best, perturbed),
+             "params": _train_checkpoint(tmp_path / "b", None, best), "reference .tar": ref_tar}
+    for name, path in cases.items():
+        got = load_humaniflow_checkpoint(path, TorchModel(tcfg.MODEL, device="cpu"))
+        for k, v in best.items():
+            torch.testing.assert_close(got.state_dict()[k], v, rtol=0, atol=0, msg=f"{name}: {k}")
+        out = predict(got)
+        for k in want:
+            torch.testing.assert_close(out[k], want[k], rtol=0, atol=0, msg=f"{name}: {k}")
+
+    extra = _train_checkpoint(tmp_path / "c", {**best, "fc9.weight": torch.zeros(2)}, best)
+    with pytest.raises(KeyError, match="fc9.weight"):
+        load_humaniflow_checkpoint(extra, TorchModel(tcfg.MODEL, device="cpu"))
+
+
+def test_predict_and_optimise_clis_take_a_checkpoint_of_train_humaniflow(slice_models, tmp_path, monkeypatch):
+    """The predict and optimise CLIs' -C, on the CPU: a train_humaniflow
+    checkpoint holding the slice's weights (best_params; perturbed params)
+    gives the same predictions and the same refined fits as the reference
+    `.tar` of those weights."""
+    from humaniflow_torch.cli import run_optimise, run_predict
+
+    tar, pth, img_dir, cfg = _cli_files(slice_models, tmp_path, monkeypatch)
+    best = load_humaniflow_checkpoint(tar, TorchModel(slice_models[1][1].MODEL, device="cpu")).state_dict()
+    port = _train_checkpoint(tmp_path / "experiment", best,
+                             {k: v * 1.5 if v.is_floating_point() else v for k, v in best.items()})
+    opt_cfg = tmp_path / "opt.yaml"
+    opt_cfg.write_text("NUM_ITERS: 3\n")
+    outs = {}
+    for name, ckpt in (("tar", tar), ("port", port)):
+        pred_dir, opt_dir = tmp_path / f"pred_{name}", tmp_path / f"opt_{name}"
+        torch.manual_seed(0)  # the same sample noise for both checkpoints
+        run_predict.main(["-I", str(img_dir), "-S", str(pred_dir), "-C", ckpt, "--hrnet_checkpoint", pth,
+                          "--hrnet_dtype", "f32", "-N", "2", "--cfg", str(cfg), "--device", "cpu"])
+        run_optimise.main(["-I", str(img_dir), "-P", str(pred_dir), "-S", str(opt_dir), "-C", ckpt,
+                           "--cfg", str(cfg), "--optimise_cfg", str(opt_cfg), "--no_visualise", "--device", "cpu"])
+        outs[name] = {f: dict(np.load(d / f)) for d in (pred_dir, opt_dir) for f in os.listdir(d)}
+    assert sorted(outs["port"]) == sorted(outs["tar"]) and len(outs["tar"]) == 4
+    for f, arrays in outs["tar"].items():
+        got = outs["port"][f]
+        assert sorted(got) == sorted(arrays), f
+        for k, v in arrays.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=f"{f}: {k}")
