@@ -7,7 +7,9 @@ Phases, each of which raises on failure (exit code != 0):
 1. print the card's name and power limit; build the CUDA kernels with nvcc
    (into build/torch_kernels/, one nvcc per source, all at once);
 2. hold kernels K2 (smpl_verts) and K1 (smpl_moments) against their plain
-   PyTorch twins at the main path's shapes and at ragged ones, and time both;
+   PyTorch twins at the main path's shapes and at ragged ones (K1 at
+   (G, N) = (1, 1), (3, 7), (2, 17), (32, 10), (4, 101) and (32, 100), the
+   same bits on two launches, printing its chunks), and time both;
 3. drive the main path through predict_humaniflow at the full width of the
    default model (ResNet-18, 256² proxy, 8-level flow, synthetic SMPL with
    6890 vertices; seeded random weights), B=32 images, N=100 samples, and
@@ -45,8 +47,11 @@ Phases, each of which raises on failure (exit code != 0):
    (img/s, and the split into HRNet, crops and predict);
 11. training: hold kernel K4 (raster) against its plain twin, bit for bit,
    on posed bodies at 256² with the training flags and with fragments,
-   linear attributes and depth gradients, culled and not, and time it at
-   the training batch; hold K2's forward against its twin at every row
+   linear attributes and depth gradients, culled and not, and on the cases
+   of its card-only tests (384², two column tiles; 1024²; 2,400
+   near-degenerate faces; 2,000 large boxes; all faces culled; NaN and
+   infinite coordinates; indices out of range), printing its tile plan, and
+   time it at the training batch; hold K2's forward against its twin at every row
    count the paths give it (32, 72, 320, 576, 3,200, 3,232) and at ragged
    ones (1, 17, 33), printing the tile forward_plan picks for each, and time
    it at the paths' shapes (CUDA events and the kernel's device time); hold
@@ -82,7 +87,8 @@ Phases 1-7 and 11-14 run with the fused level off.  Each path of phases 3, 4,
 6, 7, 9, 10, 11 and 14 is driven with the kernel launch counters
 set to 0 just before it and read just after; launches made to compare a
 kernel with its twin, or to time it, are not counted.  Last, torch.profiler
-counts the kernel launches of one call of K2's backward.  Prints one
+counts the kernel launches of one call of K2's backward and takes the
+kernels' own device ms (K1 and K4 beside their bounds).  Prints one
 {"kernels": [...]} line, then the card line as nvidia-smi gives it, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the humaniflow_torch
 package beside it, it exits non-zero and prints no result.
@@ -189,21 +195,31 @@ def check_kernels(smpl):
         bound_ms=bound, bound_by=by,
     )
 
-    for rows, v in (((3, 7), 1000), ((B, N), V)):
+    worst = 0.0
+    for rows, v in (((1, 1), 1000), ((3, 7), 1000), ((2, 17), V), ((B, 10), V), ((4, 101), V), ((B, N), V)):
         args = _kernel_args(smpl, rows, v, seed=2)
         got = cuda_lbs.smpl_moments(*args)
+        again = cuda_lbs.smpl_moments(*args)
         torch.cuda.synchronize()
         want = cuda_lbs.smpl_verts_moments_plain(*args)
         err = float((got - want).abs().max())
+        worst = max(worst, err)
         rel = float(((got - want).abs().amax(dim=(0, 2, 3)) / want.abs().amax(dim=(0, 2, 3))).max())
-        print(f"K1 smpl_moments rows={rows} V={v}: max_abs_err {err:.3e}, relative {rel:.3e}")
+        blocks = cuda_lbs.moments_blocks(*rows)
+        chunks = [len(c) for c in blocks[0]] + ([[len(c) for c in blocks[-1]]] if len(blocks) > rows[0] else [])
+        print(f"K1 smpl_moments (G, N)={rows} V={v}: chunks of a group's block [and of a tail block] {chunks}; "
+              f"max_abs_err {err:.3e}, relative {rel:.3e}, same bits on two launches {torch.equal(got, again)}")
         if not rel <= MOMENTS_RTOL:
             raise AssertionError(f"K1 disagrees with its plain twin: {rel} > {MOMENTS_RTOL}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 gave other bits on a second launch at (G, N)={rows}")
     flops, nbytes = _work(args, got.numel(), B * N, V, extra_flops_per_row_vertex=9)
     bound, by = _bound_ms(flops, nbytes)
+    ms = cuda_ms(lambda: cuda_lbs.smpl_moments(*args), 20)
+    print(f"K1 at (G, N)=({B}, {N}) V={V}: {ms:.4f} ms per call (CUDA events) against a bound of {bound:.4f} ms "
+          f"({by})")
     records["smpl_moments"] = dict(
-        name="smpl_moments", replaces="humaniflow_tpu/models/pallas_lbs.py:267", max_abs_err=err,
-        ms=cuda_ms(lambda: cuda_lbs.smpl_moments(*args), 20),
+        name="smpl_moments", replaces="humaniflow_tpu/models/pallas_lbs.py:267", max_abs_err=worst, ms=ms,
         plain_ms=cuda_ms(lambda: cuda_lbs.smpl_verts_moments_plain(*args), 5),
         bound_ms=bound, bound_by=by,
     )
@@ -789,58 +805,51 @@ def check_hrnet_against_cpu(crops):
 
 
 
-def _training_screen(renderer, smpl, b, seed):
-    """(screen coordinates (b, 7829, 3), DensePose vertices, cam_t) of b
-    synthetic bodies as the training render sees them: poses 0.3·N(0, 1),
-    shapes 1.25·N(0, 1), flipped by the x-axis π rotation, camera
-    (0, −0.2, 2.5) + 0.05·N(0, 1)."""
-    import math
+def _training_renderer():
+    """The renderer of the training configuration
+    (utils/profiling.py::training_renderer), checked to route to K4."""
+    from humaniflow_torch.utils.profiling import training_renderer
 
-    import torch
-
-    from humaniflow_torch.models import smpl_forward
-    from humaniflow_torch.ops import aa_rotate_rotmats, aa_rotate_translate_points, so3_exp
-
-    g = torch.Generator("cuda").manual_seed(seed)
-    x_axis = torch.tensor([1.0, 0.0, 0.0], device="cuda")
-    with torch.inference_mode():
-        pose = so3_exp(0.3 * torch.randn((b, 24, 3), generator=g, device="cuda"))
-        _, glob = aa_rotate_rotmats(pose[:, 0], x_axis, math.pi)
-        shape = 1.25 * torch.randn((b, 10), generator=g, device="cuda")
-        verts = smpl_forward(smpl, shape, pose[:, 1:], glob)["vertices"]
-        verts = aa_rotate_translate_points(verts, x_axis, math.pi, torch.zeros(3, device="cuda"))
-        cam_t = torch.tensor([0.0, -0.2, 2.5], device="cuda") + 0.05 * torch.randn((b, 3), generator=g, device="cuda")
-        dp = verts[:, renderer.dp["vertex_map"]]
-        return renderer._screen_verts(dp, cam_t).contiguous(), dp, cam_t
-
-
-def _training_renderer(cfg):
-    """The renderer of the training configuration (scripts/run_train.py --cull;
-    its binning capacities live_cap 28672 and k_max 512 have no counterpart,
-    K4 has no capacity)."""
-    from humaniflow_torch.render import TexturedIUVRenderer
-
-    renderer = TexturedIUVRenderer(
-        img_wh=IMG, projection_type="perspective", focal_length=cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH,
-        rasterizer="binned", texture_sampling="face", emit_uv=False, binned_cull=True, emit_overflow=True,
-    )
+    renderer = training_renderer()
     if renderer.rasterizer != "binned":
         raise AssertionError("the training renderer did not route to the attribute rasterizer")
     return renderer
 
 
-def check_raster(smpl, cfg):
-    """Phase 11a: K4 against its plain twin, bit for bit, and its time at the
-    training batch; returns its record."""
+def _hold_raster(name, sv, faces, img, kw, allow_overflow=False):
+    """K4 against its plain twin on one case, bit for bit in depth, face
+    ids, barycentrics, planes and overflow; returns K4's outputs."""
     import torch
 
     from humaniflow_torch.render import cuda_raster
-    from humaniflow_torch.utils.profiling import cuda_ms
 
-    renderer = _training_renderer(cfg)
-    faces = renderer.dp["faces"]
+    got = cuda_raster.raster(sv, faces, img, **kw)
+    torch.cuda.synchronize()
+    want = cuda_raster.raster_plain(sv, faces, img, **kw)
+    diff = int((got[0] != want[0]).sum())
+    if got[1] is not None:
+        diff += sum(int((a != b).sum()) for a, b in zip(got[1], want[1]))
+    diff += int((got[2] != want[2]).sum()) + int((got[3] != want[3]).sum())
+    covered = int((want[0] < 1e9).sum())
+    print(f"K4 raster, {name}: tile {cuda_raster.tile_plan(img)}, {diff} differing values, {covered} covered px, "
+          f"overflow {got[3].tolist()[:4]}")
+    if diff or covered == 0 or (not allow_overflow and int(want[3].abs().sum())):
+        raise AssertionError(f"K4 disagrees with its plain twin ({name})")
+    return got
+
+
+def check_raster(smpl):
+    """Phase 11a: K4 against its plain twin, bit for bit, and its time at the
+    training batch beside its bound, with its tile plan; returns its
+    record."""
+    import torch
+
+    from humaniflow_torch.render import cuda_raster
+    from humaniflow_torch.utils.profiling import coverage_cases, cuda_ms, sliver_case, training_screen
+
+    faces = _training_renderer().dp["faces"]
     f = faces.shape[0]
-    sv, _, _ = _training_screen(renderer, smpl, 6, seed=41)
+    sv = training_screen(smpl, 6, seed=41)[1]
     g = torch.Generator("cuda").manual_seed(44)
     rand = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
     cases = {
@@ -849,21 +858,36 @@ def check_raster(smpl, cfg):
         "the same, culled": dict(attrs=rand(1, f, 7), n_lin=2, z_grads=True, cull_sign=1),
     }
     for name, kw in cases.items():
-        got = cuda_raster.raster(sv, faces, IMG, **kw)
-        torch.cuda.synchronize()
-        want = cuda_raster.raster_plain(sv, faces, IMG, **kw)
-        diff = int((got[0] != want[0]).sum())
-        if got[1] is not None:
-            diff += sum(int((a != b).sum()) for a, b in zip(got[1], want[1]))
-        diff += int((got[2] != want[2]).sum())
-        covered = int((want[0] < 1e9).sum())
-        print(f"K4 raster, 6 posed bodies at {IMG}², {name}: {diff} differing values, {covered} covered px, "
-              f"overflow {int(got[3].sum())}")
-        if diff or int(got[3].abs().sum()) or int(want[3].abs().sum()) or covered == 0:
-            raise AssertionError(f"K4 disagrees with its plain twin ({name})")
+        _hold_raster(f"6 posed bodies at {IMG}², {name}", sv, faces, IMG, kw)
+    # the cases of tests/test_torch_kernels.py: several tiles in both
+    # directions, near-degenerate faces, big boxes past a block's queue, all
+    # faces culled, non-finite coordinates, indices out of range
+    cov = coverage_cases("cuda")
+    sv384 = training_screen(smpl, 3, seed=45, img=384)[1]
+    bad_sv = sv[:2].clone()
+    bad_sv[0, 100:400] = float("nan")
+    bad_sv[1, 500:520, 2] = float("inf")
+    bad_sv[1, 700:720, 0] = -float("inf")
+    oob = torch.tensor([[0, 1, sv.shape[1]], [-1, 2, 3], [4, sv.shape[1] + 7, 5]], dtype=torch.int32, device="cuda")
+    edge = {
+        "3 posed bodies at 384² (2 column tiles)": (sv384, faces, 384, 1, 0),
+        "faces across band borders at 1024², NaN vertex, 2 indices out of range":
+            cov["band borders at 1024², NaN vertex, 2 indices out of range"][:3] + (0, 2),
+        "2,400 near-degenerate faces at 256²": sliver_case(IMG) + (IMG, 0, 0),
+        "2,000 large boxes": cov["2,000 large boxes"][:3] + (0, 0),
+        "all culled, and its mirror all kept": cov["all culled, and its mirror all kept"][:3] + (1, 0),
+        "NaN and infinite coordinates": (bad_sv.contiguous(), faces, IMG, 1, 0),
+        "3 indices out of range": (sv[:2], torch.cat([faces, oob]).contiguous(), IMG, 0, 3),
+    }
+    for name, (v, fcs, img, cull, want_overflow) in edge.items():
+        attrs = rand(1, fcs.shape[0], 5)
+        got = _hold_raster(name, v, fcs, img, dict(attrs=attrs, n_lin=1, z_grads=True, cull_sign=cull),
+                           allow_overflow=True)
+        if got[3].tolist() != [want_overflow] * v.shape[0]:
+            raise AssertionError(f"K4 overflow {got[3].tolist()} on {name}; expected {want_overflow} per mesh")
 
     # time at the training shape: B meshes, the face-texel render's 4 constants, culled
-    sv, _, _ = _training_screen(renderer, smpl, TRAIN_B, seed=42)
+    sv = training_screen(smpl, TRAIN_B, seed=42)[1]
     attrs = rand(TRAIN_B, f, 4)
     run = lambda m: cuda_raster.raster(sv[:m], faces, IMG, attrs=attrs[:m], emit_frags=False, cull_sign=1)  # noqa: E731
     depth, _, _, overflow = run(TRAIN_B)
@@ -880,12 +904,15 @@ def check_raster(smpl, cfg):
     ms = cuda_ms(lambda: run(TRAIN_B), 20)
     plain_ms = cuda_ms(
         lambda: cuda_raster.raster_plain(sv[:4], faces, IMG, attrs=attrs[:4], emit_frags=False, cull_sign=1), 2)
-    print(f"K4 at B={TRAIN_B}, {IMG}²: {tests:.4e} pixel tests over {kept} kept faces, {covered} covered px, "
-          f"{nbytes / 1e9:.3f} GB; {ms:.4f} ms per batch against a bound of {bound:.4f} ms ({by}); "
-          f"twin {plain_ms:.2f} ms on 4 meshes")
+    rows, cols, row_tiles, col_tiles = cuda_raster.tile_plan(IMG)
+    print(f"K4 at B={TRAIN_B}, {IMG}²: tiles of {rows}×{cols} px ({rows * cols * 8 // 1024} KB of keys), "
+          f"{TRAIN_B * row_tiles * col_tiles} blocks; {tests:.4e} pixel tests over {kept} kept faces, {covered} "
+          f"covered px, {nbytes / 1e9:.3f} GB; {ms:.4f} ms per batch (CUDA events) against a bound of {bound:.4f} ms "
+          f"({by}); twin {plain_ms:.2f} ms on 4 meshes")
     return dict(
         name="raster", replaces="humaniflow_tpu/render/binned_rasterizer.py:76", max_abs_err=0.0, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, ms_meshes=TRAIN_B, plain_ms_meshes=4,
+        tile=[rows, cols, row_tiles, col_tiles],
     )
 
 
@@ -1004,13 +1031,13 @@ def profile_kernel_device_times(smpl, records):
     """The kernels' own device time per call (torch.profiler), without the
     wrapper's host time that CUDA events around back-to-back calls also
     count where the launches are short: K2's forward at the paths' rows,
-    K2's backward kernel at 32, 72 and 576 rows, K1 at (32, 100) and K6 at
-    phase 12's shape; added to the records."""
+    K2's backward kernel at 32, 72 and 576 rows, K1 at (32, 100), K4 at the
+    training batch and K6 at phase 12's shape; added to the records."""
     import torch
 
     from humaniflow_torch.models import cuda_lbs
-    from humaniflow_torch.render import cuda_tiled
-    from humaniflow_torch.utils.profiling import kernel_device_ms
+    from humaniflow_torch.render import cuda_raster, cuda_tiled
+    from humaniflow_torch.utils.profiling import kernel_device_ms, training_screen
 
     for rows in FORWARD_ROWS:
         args = _kernel_args(smpl, (rows,), V, seed=rows)
@@ -1022,8 +1049,13 @@ def profile_kernel_device_times(smpl, records):
         records["smpl_verts_backward"][f"kernel_device_ms_b{rows}"] = kernel_device_ms(
             lambda: cuda_lbs.smpl_verts_backward_vertex(grad, True, True, *args), "smpl_verts_bwd", 20)
     args = _kernel_args(smpl, (B, N), V, seed=2)
-    records["smpl_moments"]["device_ms"] = kernel_device_ms(lambda: cuda_lbs.smpl_moments(*args), "smpl_moments",
-                                                            20)
+    # K1's launch and, when its groups' tails share chunks, the launch adding their sums
+    records["smpl_moments"]["device_ms"] = kernel_device_ms(lambda: cuda_lbs.smpl_moments(*args), "moments", 20)
+    renderer, sv = training_screen(smpl, TRAIN_B, seed=42)
+    attrs = torch.randn((TRAIN_B, renderer.dp["faces"].shape[0], 4), generator=torch.Generator("cuda").manual_seed(44),
+                        device="cuda")
+    records["raster"]["device_ms"] = kernel_device_ms(  # both passes and their memsets: all the call's device work
+        lambda: cuda_raster.raster(sv, renderer.dp["faces"], IMG, attrs=attrs, emit_frags=False, cull_sign=1), "", 20)
     renderer = _vis_renderer("tiled")
     sv = _vis_screen(renderer, smpl, B, seed=71)
     faces = renderer.dp["faces"]
@@ -1035,7 +1067,12 @@ def profile_kernel_device_times(smpl, records):
          "K2 backward kernel": {r: round(records["smpl_verts_backward"][f"kernel_device_ms_b{r}"], 5)
                                 for r in (B, TRAIN_B, TRAIN_B * TRAIN_NJ)},
          "K1 (32, 100)": round(records["smpl_moments"]["device_ms"], 5),
+         f"K4 B={TRAIN_B}": round(records["raster"]["device_ms"], 5),
          f"K6 B={B}": round(records["tiled_raster"]["device_ms"], 5)}))
+    for name, key in (("K1 (32, 100)", "smpl_moments"), (f"K4 B={TRAIN_B} {IMG}²", "raster")):
+        rec = records[key]
+        print(f"{name}: device {rec['device_ms']:.4f} ms against a bound of {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), {rec['bound_ms'] / rec['device_ms']:.1%} of it")
 
 
 def _train_batch(b, img, seed, device):
@@ -1122,7 +1159,7 @@ def train_full_width(smpl, cfg):
     from humaniflow_torch.pipelines import make_optimizer, make_synth_data_fn, make_train_step, train_humaniflow
     from humaniflow_torch.utils.profiling import wall_ms
 
-    renderer = _training_renderer(cfg)
+    renderer = _training_renderer()
     rng = np.random.default_rng(61)
     host = {
         "pose": rng.normal(scale=0.3, size=(TRAIN_B, 72)).astype(np.float32),
@@ -1873,7 +1910,7 @@ def _main() -> int:
 
     # ---- phase 11: training
     _set_fused(False)
-    records["raster"] = check_raster(smpl, cfg)
+    records["raster"] = check_raster(smpl)
     check_smpl_verts_plans(smpl, records["smpl_verts"])
     records["smpl_verts_backward"] = check_smpl_backward(smpl)
     check_train_step_against_cpu(cfg)

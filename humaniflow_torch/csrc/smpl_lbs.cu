@@ -38,14 +38,34 @@
 // skinning in its epilogue, which reads the basis ceil(B/64) times, measured
 // slower at every row count: PERF.md, Findings.)
 //
-// K1 and K2's backward: one thread per vertex, 128
-// vertices per block, 16 sample rows per pass.  The rows' betas, pose
-// features and A12 are staged in shared memory (read as broadcasts); each
-// model value a thread loads from global memory is reused for all 16 rows
-// held in registers.  The posed vertices then go to shared memory, so the
-// skinning loop over rows needs no unrolling.  K1's block owns one (vertex
-// tile, group) pair and loops over all of the group's rows, so its sums need
-// no atomics and no second pass and are deterministic.
+// K1 (bound by operations, like K2's forward: 0.63 ms at (G, N) = (32, 100)
+// on an H100 at its float32 peak; it writes only 5 MB).  Its first design
+// staged each 16-row pass's posed vertices in shared memory, with a barrier
+// per pass, left 12% of its row slots empty at N = 100, held 4 blocks an SM
+// at 127 registers, and read the basis ceil(N/16) times per group: 1.67 ms
+// on an `NVIDIA H100 80GB HBM3, 700.00 W`.  Now it takes K2's forward's
+// structure (smpl_moments_kernel): one thread per vertex, a chunk of rows
+// staged once per block, the chunk's posed vertices in registers, skinned
+// from them, and six sums per thread in shared memory across the chunks,
+// written once.  The chunks are 16 rows, then the remainder as chunks of 8,
+// 4, 2 and 1 (moments_chunk), so that no FMA is spent on an empty slot.  A
+// pass over the basis costs half as much for 4 rows as for 16 (the kernel
+// waits on the basis loads from L2 more than on its FMAs; utils/
+// profiling.py --plans times N = 96, 100 and 112), so when 1 <= N % 16 <=
+// 4 the last N % 16 rows of four groups share one chunk in a block of their
+// own (tail_out, then moments_tail_add): 200 passes over the basis per
+// vertex tile at (32, 100) instead of 224.  All sums are taken in a fixed order:
+// the same bits on every launch.  Slower alternatives, measured on that
+// card (PERF.md, Findings): 8-row chunks; 6 blocks an SM (spills); a
+// block of 8 warps sharing 32 vertices with their basis slice streamed
+// through shared memory by cp.async; a cp.async ring prefetching each
+// thread's own basis values.
+//
+// K2's backward: one thread per vertex, 128 vertices per block, 16 sample
+// rows per pass.  The rows' betas, pose features and A12 are staged in
+// shared memory (read as broadcasts); each model value a thread loads from
+// global memory is reused for all 16 rows held in registers.  The posed
+// vertices then go to shared memory.
 //
 // K2's backward.  Every adjoint of the vertices follows from two per-vertex
 // tensors: dp[b,i,v] = sum_c T12[3c+i] g[b,c,v] (B, 3, V) and
@@ -168,13 +188,6 @@ __device__ __forceinline__ void skin(const float* a12_row, const float (&w)[kJoi
     out[c] = fmaf(t[3 * c], p0, fmaf(t[3 * c + 1], p1, fmaf(t[3 * c + 2], p2, t[9 + c])));
 }
 
-// Skinned vertex of staged row r; reads the posed vertex this thread wrote.
-__device__ __forceinline__ void skin_row(const Stage& s, int r, const float (&w)[kJoints],
-                                         float (&out)[3]) {
-  skin(s.a12[r], w, s.u.p[0][r][threadIdx.x], s.u.p[1][r][threadIdx.x], s.u.p[2][r][threadIdx.x],
-       out);
-}
-
 __device__ __forceinline__ void load_weights(const float* __restrict__ lbs_w, int v,
                                              float (&w)[kJoints]) {
   const float4* w4 = reinterpret_cast<const float4*>(lbs_w + (size_t)v * kJoints);
@@ -284,29 +297,137 @@ int launch_verts(const float* a12, const float* betas, const float* pf, const fl
   return (int)cudaGetLastError();
 }
 
-// Grid (ceil(V/kVT), G); rows of group g are g*N .. g*N+N-1; out (G, 2, 3, V).
-__global__ void __launch_bounds__(kVT) smpl_moments_kernel(
-    const float* __restrict__ a12, const float* __restrict__ betas,
-    const float* __restrict__ pf, const float* __restrict__ vt,
-    const float* __restrict__ sd, const float* __restrict__ pd,
-    const float* __restrict__ lbs_w, float* __restrict__ out, int N, int V, int nb) {
-  __shared__ Stage s;
-  const int v_raw = blockIdx.x * kVT + threadIdx.x;
-  const int v = min(v_raw, V - 1);
-  const long long g = blockIdx.y;
+// ---- K1: per-group moments.  Rows of group g are g*N .. g*N+N-1; out
+// (G, 2, 3, V) = (sum x, sum x^2) over each group's rows.
+
+// K1 takes rows in chunks of ROWS, then the remainder in chunks of ROWS/2,
+// ROWS/4, ..., 1, each present at most once, so that no FMA is spent on an
+// empty row slot.  models/cuda_lbs.py::moments_chunks is the same rule.
+// Returns the row count of chunk ci of n rows (0 past the last) and sets its
+// first row.
+template <int ROWS>
+__device__ __forceinline__ int moments_chunk(int n, int ci, int& start) {
+  const int full = n / ROWS;
+  start = min(ci, full) * ROWS;
+  if (ci < full) return ROWS;
+  int k = full;
+#pragma unroll
+  for (int r = ROWS / 2; r >= 1; r >>= 1) {
+    if (n & r) {
+      if (k == ci) return r;
+      start += r;
+      ++k;
+    }
+  }
+  return 0;
+}
+
+// p[.][0..R) += d * q[0..R), q a row of R features in shared memory.
+template <int R, int S>
+__device__ __forceinline__ void fma_feature(float (&p)[3][S], const float* q, float d0, float d1,
+                                            float d2) {
+  if constexpr (R % 4 == 0) {
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+#pragma unroll
+    for (int r4 = 0; r4 < R / 4; ++r4) fma_rows4(p, 4 * r4, q4[r4], d0, d1, d2);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      p[0][r] = fmaf(d0, q[r], p[0][r]);
+      p[1][r] = fmaf(d1, q[r], p[1][r]);
+      p[2][r] = fmaf(d2, q[r], p[2][r]);
+    }
+  }
+}
+
+// A block's rows: a group's first `n` rows (tail = 0), or the last `tail`
+// rows (1 <= tail <= 4) of each of kTailGroups consecutive groups from g0,
+// whose row j belongs to the block's group j / tail.
+constexpr int kTailGroups = 4;
+
+struct MomentRows {
+  long long g0;
+  int N, tail;
+  __device__ __forceinline__ long long row(int j) const {
+    return tail ? (g0 + j / tail) * N + (N - tail) + j % tail : g0 * N + j;
+  }
+};
+
+// A chunk's inputs: its rows' blend-shape coefficients for the blend, then
+// in the same space their A12 for the skinning (ROWS rows, R <= ROWS used).
+template <int ROWS>
+struct MomentStage {
+  union __align__(16) {
+    struct {
+      float beta[kMaxBetas][ROWS];  // [feature][row]
+      float pf[kPoseFeat][ROWS];
+    } in;
+    float a12[ROWS][kA12];
+  } u;
+};
+
+// Rows j0 .. j0 + R - 1 of the block (rows.row) for vertex v: staged in s,
+// blended in registers, skinned, and added to the thread's sums in acc (a
+// group's block: slot 0, per chunk; a tail block: slot j / tail, per row).
+// Every thread of the block calls it.
+template <int ROWS, int R>
+__device__ __forceinline__ void moments_rows(MomentStage<ROWS>& s, const MomentRows& rows, int j0, int v,
+                                             int V, int nb, const float* __restrict__ a12,
+                                             const float* __restrict__ betas,
+                                             const float* __restrict__ pf,
+                                             const float* __restrict__ vt,
+                                             const float* __restrict__ sd,
+                                             const float* __restrict__ pd,
+                                             const float* __restrict__ lbs_w,
+                                             float (&acc)[kTailGroups][6][kVT]) {
+  __syncthreads();  // the previous chunk is done with s
+  for (int i = threadIdx.x; i < R * nb; i += kVT) {
+    const int r = i / nb;
+    s.u.in.beta[i - r * nb][r] = betas[rows.row(j0 + r) * nb + (i - r * nb)];
+  }
+  for (int i = threadIdx.x; i < R * kPoseFeat; i += kVT) {
+    const int r = i / kPoseFeat;
+    s.u.in.pf[i - r * kPoseFeat][r] = pf[rows.row(j0 + r) * kPoseFeat + (i - r * kPoseFeat)];
+  }
+  __syncthreads();
+
+  float p[3][R];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float base = __ldg(vt + (long long)c * V + v);
+#pragma unroll
+    for (int r = 0; r < R; ++r) p[c][r] = base;
+  }
+  for (int l = 0; l < nb; ++l) {
+    const size_t o = (size_t)l * 3 * V + v;
+    fma_feature<R>(p, s.u.in.beta[l], __ldg(sd + o), __ldg(sd + o + V), __ldg(sd + o + 2 * V));
+  }
+#pragma unroll 4
+  for (int k = 0; k < kPoseFeat; ++k) {
+    const size_t o = (size_t)k * 3 * V + v;
+    fma_feature<R>(p, s.u.in.pf[k], __ldg(pd + o), __ldg(pd + o + V), __ldg(pd + o + 2 * V));
+  }
+  __syncthreads();  // every thread is done with the coefficients
+  for (int i = threadIdx.x; i < R * kA12; i += kVT) {
+    const int r = i / kA12;
+    s.u.a12[r][i - r * kA12] = a12[rows.row(j0 + r) * kA12 + (i - r * kA12)];
+  }
+  __syncthreads();
   float w[kJoints];
   load_weights(lbs_w, v, w);
   float s1[3] = {0.f, 0.f, 0.f}, s2[3] = {0.f, 0.f, 0.f};
-  for (int row0 = 0; row0 < N; row0 += kRows) {
-    const int nrows = min(kRows, N - row0);
-    __syncthreads();  // the previous pass is done with the shared buffers
-    stage_rows(s, a12, betas, pf, nb, g * N + row0, nrows);
-    __syncthreads();
-    blend_rows(s, v, V, nb, vt, sd, pd);
-#pragma unroll 1
-    for (int r = 0; r < nrows; ++r) {
-      float o[3];
-      skin_row(s, r, w, o);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float o[3];
+    skin(s.u.a12[r], w, p[0][r], p[1][r], p[2][r], o);
+    if (rows.tail) {  // the row's own group; this thread's own column: no barrier needed
+      float(&a)[6][kVT] = acc[(j0 + r) / rows.tail];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        a[c][threadIdx.x] += o[c];
+        a[3 + c][threadIdx.x] = fmaf(o[c], o[c], a[3 + c][threadIdx.x]);
+      }
+    } else {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         s1[c] += o[c];
@@ -314,12 +435,81 @@ __global__ void __launch_bounds__(kVT) smpl_moments_kernel(
       }
     }
   }
-  if (v_raw >= V) return;
+  if (!rows.tail) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    out[((g * 2 + 0) * 3 + c) * V + v] = s1[c];
-    out[((g * 2 + 1) * 3 + c) * V + v] = s2[c];
+    for (int c = 0; c < 3; ++c) {
+      acc[0][c][threadIdx.x] += s1[c];
+      acc[0][3 + c][threadIdx.x] += s2[c];
+    }
   }
+}
+
+// The chunk of r rows, r one of ROWS, ROWS/2, ..., 1, through the
+// instantiation for r.
+template <int ROWS, int R>
+__device__ __forceinline__ void moments_rows_of(int r, MomentStage<ROWS>& s, const MomentRows& rows, int j0,
+                                                int v, int V, int nb, const float* __restrict__ a12,
+                                                const float* __restrict__ betas,
+                                                const float* __restrict__ pf,
+                                                const float* __restrict__ vt,
+                                                const float* __restrict__ sd,
+                                                const float* __restrict__ pd,
+                                                const float* __restrict__ lbs_w,
+                                                float (&acc)[kTailGroups][6][kVT]) {
+  if (r == R)
+    moments_rows<ROWS, R>(s, rows, j0, v, V, nb, a12, betas, pf, vt, sd, pd, lbs_w, acc);
+  else if constexpr (R > 1)
+    moments_rows_of<ROWS, R / 2>(r, s, rows, j0, v, V, nb, a12, betas, pf, vt, sd, pd, lbs_w, acc);
+}
+
+// K1 on K2's forward design.  Grid (ceil(V/kVT), G + tail blocks), kVT
+// threads, one thread per vertex.  Block y < G takes group y's first N -
+// tail rows (all N when tail is 0) in chunks (moments_chunk), each staged
+// once, blended in registers (each basis value loaded once for the chunk's
+// rows) and skinned from the same registers; its sums (in shared memory, so
+// that they hold no registers during the blend) go to out once.  When 1 <=
+// N % 16 <= 4 the wrapper sets tail = N % 16, and block G + b takes the
+// last `tail` rows of groups 4b .. 4b + 3 as one chunk (16 rows at N =
+// 100, where each group's own 4-row chunk would read the whole basis for 4
+// rows) and writes their sums to tail_out, which moments_tail_add adds to
+// out.  Every sum is taken in a fixed order: the same bits on every launch.
+template <int ROWS, int MINB>
+__global__ void __launch_bounds__(kVT, MINB) smpl_moments_kernel(
+    const float* __restrict__ a12, const float* __restrict__ betas,
+    const float* __restrict__ pf, const float* __restrict__ vt,
+    const float* __restrict__ sd, const float* __restrict__ pd,
+    const float* __restrict__ lbs_w, float* __restrict__ out, float* __restrict__ tail_out, int G,
+    int N, int V, int nb, int tail) {
+  __shared__ MomentStage<ROWS> s;
+  __shared__ float acc[kTailGroups][6][kVT];
+  const int v_raw = blockIdx.x * kVT + threadIdx.x;
+  const int v = min(v_raw, V - 1);  // threads past V compute a copy, store nothing
+  const bool tail_block = (int)blockIdx.y >= G;
+  const MomentRows rows{tail_block ? (long long)(blockIdx.y - G) * kTailGroups : (long long)blockIdx.y, N,
+                        tail_block ? tail : 0};
+  const int groups = tail_block ? min(kTailGroups, G - (int)rows.g0) : 1;
+  const int n = tail_block ? groups * tail : N - tail;
+#pragma unroll
+  for (int q = 0; q < kTailGroups * 6; ++q) acc[q / 6][q % 6][threadIdx.x] = 0.f;
+  int start = 0;
+  for (int ci = 0;; ++ci) {
+    const int r = moments_chunk<ROWS>(n, ci, start);
+    if (r == 0) break;
+    moments_rows_of<ROWS, ROWS>(r, s, rows, start, v, V, nb, a12, betas, pf, vt, sd, pd, lbs_w, acc);
+  }
+  if (v_raw >= V) return;
+  float* dst = tail_block ? tail_out : out;
+  for (int gl = 0; gl < groups; ++gl)
+#pragma unroll
+    for (int q = 0; q < 6; ++q)
+      dst[(((rows.g0 + gl) * 2 + q / 3) * 3 + q % 3) * V + v] = acc[gl][q][threadIdx.x];
+}
+
+// out += tail_out, element by element: the groups' tail sums after their
+// other rows' sums.
+__global__ void moments_tail_add(float* __restrict__ out, const float* __restrict__ tail_out, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] += tail_out[i];
 }
 
 // The rotation part of T12 for staged row r: t[3c+i] = sum_j W[v,j] R_j[c,i].
@@ -412,17 +602,29 @@ extern "C" int smpl_verts_launch(const void* a12, const void* betas, const void*
   }
 }
 
-// Rows are G groups of N; out (G, 2, 3, V) = (sum x, sum x^2) over each group.
+// Rows are G groups of N; out (G, 2, 3, V) = (sum x, sum x^2) over each
+// group.  tail_out: (G, 2, 3, V) scratch, used when 1 <= N % 16 <= 4 (the
+// groups' last N % 16 rows taken four groups a chunk,
+// models/cuda_lbs.py::moments_blocks); else each group's block takes all its
+// rows.  Launch on `stream`; return the first CUDA error.
 extern "C" int smpl_moments_launch(const void* a12, const void* betas, const void* pf,
                                    const void* vt, const void* sd, const void* pd,
-                                   const void* lbs_w, void* out, int G, int N, int V,
+                                   const void* lbs_w, void* out, void* tail_out, int G, int N, int V,
                                    int nb, void* stream) {
   if (G <= 0 || V <= 0) return 0;
-  if (nb < 0 || nb > kMaxBetas || N <= 0 || G > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((V + kVT - 1) / kVT, G);
-  smpl_moments_kernel<<<grid, kVT, 0, (cudaStream_t)stream>>>(
-      (const float*)a12, (const float*)betas, (const float*)pf, (const float*)vt,
-      (const float*)sd, (const float*)pd, (const float*)lbs_w, (float*)out, N, V, nb);
+  if (nb < 0 || nb > kMaxBetas || N <= 0) return (int)cudaErrorInvalidValue;
+  const int tail = (N % 16 >= 1 && N % 16 <= 4) ? N % 16 : 0;
+  if (tail && tail_out == nullptr) return (int)cudaErrorInvalidValue;
+  const long long rows_y = G + (tail ? (G + kTailGroups - 1) / kTailGroups : 0);
+  if (rows_y > 65535) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  smpl_moments_kernel<16, 5><<<dim3((V + kVT - 1) / kVT, (unsigned)rows_y), kVT, 0, st>>>(
+      (const float*)a12, (const float*)betas, (const float*)pf, (const float*)vt, (const float*)sd,
+      (const float*)pd, (const float*)lbs_w, (float*)out, (float*)tail_out, G, N, V, nb, tail);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !tail) return (int)err;
+  const long long n = (long long)G * 6 * V;
+  moments_tail_add<<<(unsigned)((n + 255) / 256), 256, 0, st>>>((float*)out, (const float*)tail_out, n);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,10 @@ The counterpart of `humaniflow_tpu/models/pallas_lbs.py`:
 * K1 `smpl_moments` (TPU: `_smpl_moments_kernel` via
   `smpl_verts_moments_fused`): the same vertices for G groups of N samples,
   reduced inside the kernel to (Σx, Σx²) over each group, (G, 2, 3, V); the
-  (G·N, 3, V) sample vertices never reach memory.
+  (G·N, 3, V) sample vertices never reach memory.  One thread per vertex,
+  each group's rows in chunks of 16 (then 8, 4, 2, 1: `moments_chunks`)
+  held in registers; when 1 ≤ N % 16 ≤ 4 the groups' last N % 16 rows go
+  four groups to a chunk (`moments_tail`, `moments_blocks`).
 * K7 `lbs_skin_cm` (TPU: `_lbs_kernel` via `lbs_skin_pallas_cm`): linear
   blend skinning of channel-major posed vertices (B, 3, V), with its
   gradient as `LBSSkin`.  No path calls it, in the JAX package (only its
@@ -57,6 +60,9 @@ MAX_BETAS = 16  # csrc/smpl_lbs.cu kMaxBetas
 # K2's forward row groups, (rows, vertices) a block, in csrc/smpl_lbs.cu's
 # plan order: the more rows a block, the fewer times the basis is read.
 FORWARD_PLANS = ((16, 128), (8, 128), (4, 128))
+# K1 takes the last N % 16 rows of this many groups in one chunk when
+# 1 <= N % 16 <= 4 (a second launch adds their sums).
+MOMENTS_TAIL_GROUPS = 4  # csrc/smpl_lbs.cu kTailGroups
 
 
 def forward_plan(b: int, v: int, sms: int = 132) -> int:
@@ -70,6 +76,43 @@ def forward_plan(b: int, v: int, sms: int = 132) -> int:
         if -(-v // verts) * -(-b // rows) >= 3 * sms:
             return i
     return len(FORWARD_PLANS) - 1
+
+
+def moments_tail(n: int) -> int:
+    """The rows of each group that K1 takes four groups at a time: N % 16
+    when that is 1 to 4, else 0."""
+    return n % 16 if 1 <= n % 16 <= 4 else 0
+
+
+def moments_blocks(g: int, n: int):
+    """K1's blocks for g groups of n rows (for one vertex tile), each a list
+    of chunks, each chunk a list of (group, row) pairs in the order the
+    kernel stages them: block y < g takes group y's first n − tail rows, a
+    tail block the last `tail` rows of MOMENTS_TAIL_GROUPS consecutive
+    groups (moments_tail), both cut by moments_chunks."""
+    tail = moments_tail(n)
+    blocks = [[[(y, start + r) for r in range(rows)] for start, rows in moments_chunks(n - tail)] for y in range(g)]
+    for g0 in range(0, g if tail else 0, MOMENTS_TAIL_GROUPS):
+        count = min(MOMENTS_TAIL_GROUPS, g - g0)
+        blocks.append([[(g0 + j // tail, n - tail + j % tail) for j in range(start, start + rows)]
+                       for start, rows in moments_chunks(count * tail)])
+    return blocks
+
+
+def moments_chunks(n: int, rows: int = 16):
+    """K1's chunks of a group of n rows, as (first row, row count): chunks
+    of `rows`, then the remainder in chunks of rows/2, rows/4, ..., 1, each
+    at most once (csrc/smpl_lbs.cu moments_chunk), so that no row slot is
+    empty."""
+    full = n // rows
+    out = [(i * rows, rows) for i in range(full)]
+    start, r = full * rows, rows // 2
+    while r >= 1:
+        if n & r:
+            out.append((start, r))
+            start += r
+        r //= 2
+    return out
 
 
 def _posed_plain(betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_cm):
@@ -141,7 +184,7 @@ def _check(rows_shape, a12, betas, pose_feature, v_template_cm, shapedirs_cm, po
 
 _LAUNCHERS = {  # C entry point → (csrc source, argument types)
     "smpl_verts_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
-    "smpl_moments_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "smpl_moments_launch": ("smpl_lbs", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "lbs_skin_launch": ("lbs_skin", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
     "smpl_verts_bwd_launch": ("smpl_lbs", [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2
                               + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
@@ -203,9 +246,15 @@ def smpl_moments(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs
     if n == 0:
         raise ValueError("smpl_moments needs at least one sample per group")
     _check((g, n), *args)
-    v = v_template_cm.shape[1]
+    nb, v = betas.shape[2], v_template_cm.shape[1]
     out = torch.empty((g, 2, 3, v), dtype=torch.float32, device=a12.device)
-    _launch("smpl_moments_launch", args, out, (g, n, v, betas.shape[2]))
+    tail_out = torch.empty_like(out) if moments_tail(n) else None
+    rc = _launcher("smpl_moments_launch")(
+        *(t.data_ptr() for t in args), out.data_ptr(), None if tail_out is None else tail_out.data_ptr(),
+        g, n, v, nb, torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"smpl_moments_launch failed with CUDA error {rc}")
     LAUNCHES["smpl_moments"] += 1
     return out
 

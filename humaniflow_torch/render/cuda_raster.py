@@ -23,10 +23,18 @@ K4 has no capacity: `overflow` (M,) counts only faces whose vertex indices
 lie outside [0, V), which are dropped, and is 0 for any valid face table;
 `live_drop` is always 0.
 
+K4 (csrc/raster.cu, which describes the design) marks each kept face in
+the bands of 8 rows its box meets (a first pass), then gives each (mesh,
+tile) one block that keeps the tile's keys in shared memory and resolves
+it itself; `tile_plan` picks the tile.  Each face's units are cut to its row
+span, a bound proved against the rounded per-pixel formula: `span_constants`
+and `row_spans` are its plain version, held exhaustively against the
+formula in tests/test_torch_kernels_cpu.py.
+
 `raster` computes the twin when the tensors lie on the CPU.  For CUDA
 tensors it launches K4, or raises on a wrong dtype, device, layout or shape,
 or when grad mode is on and an input requires grad (K4 has no backward); it
-never falls back.  `LAUNCHES` counts its kernel launches.
+never falls back.  `LAUNCHES` counts its launches (both passes: one).
 """
 
 import ctypes
@@ -38,8 +46,82 @@ from .cuda_coverage import _edge_plane_coeffs
 from .rasterizer import BIG_DEPTH, Fragments, chunk_sizes
 
 LAUNCHES = {"raster": 0}
+TILE_KEYS = 4096  # keys a block holds by default: 32 KB of shared memory
+MAX_TILE_KEYS = 20480  # csrc/raster.cu kMaxTileKeys: 160 KB
+TILE_COLS = 256  # the widest tile
+
+
+def tile_plan(image_size: int, keys: int = TILE_KEYS):
+    """(tile rows, tile columns, row tiles, column tiles) of K4 at this image
+    size: full rows of at most TILE_COLS columns, as many rows as `keys`
+    64-bit keys hold (16 rows of 256 at 256²).  Every block of K4 owns one
+    (mesh, tile) and walks all of the mesh's faces."""
+    cols = min(image_size, TILE_COLS)
+    rows = max(1, min(image_size, keys // cols))
+    return rows, cols, -(-image_size // rows), -(-image_size // cols)
 
 _EMPTY = torch.iinfo(torch.int64).max
+
+
+SPAN_LIMIT = 2.0**100  # csrc/raster.cu kSpanLimit: faces whose margin sum S exceeds it are not culled
+_Q_LIMIT = 2.0**20  # csrc/raster.cu kQLimit
+
+
+def block_tile(block: int, meshes: int, row_tiles: int, col_tiles: int):
+    """(mesh, row tile, column tile) of K4's block `block` (csrc/raster.cu
+    raster_kernel): row tiles from the image's middle outwards, each taken
+    for every mesh and column tile before the next."""
+    k, rest = divmod(block, meshes * col_tiles)
+    row_tile = (row_tiles - 1) // 2 + (1 if k & 1 else -1) * ((k + 1) // 2)
+    return rest // col_tiles, row_tile, rest % col_tiles
+
+
+def span_constants(coef: torch.Tensor, image_size: int):
+    """Plain version of K4's per-face span constants (csrc/raster.cu
+    span_setup), from float32 coefficients (…, 9) [a0 b0 c0 a1 b1 c1 …]:
+    (ok, 2M, alphas (…, 3), reciprocals (…, 3)).  S = 1 + (|a0| + |a1|)·W +
+    (|b0| + |b1|)·H + |c0| + |c1| in float32 in that order; ok when S ≤
+    2^100; 2M = S·2^-19; alphas (a0, a1, −(a0 + a1)) and their float32
+    reciprocals."""
+    a0, b0, c0, a1, b1, c1 = coef[..., :6].unbind(-1)
+    size = float(image_size)
+    one = torch.ones_like(a0)
+    s = ((((one + (a0.abs() + a1.abs()) * size) + (b0.abs() + b1.abs()) * size) + c0.abs()) + c1.abs())
+    ok = s <= SPAN_LIMIT
+    alphas = torch.stack([a0, a1, -(a0 + a1)], dim=-1)
+    return ok, s * 2.0**-19, alphas, 1.0 / alphas
+
+
+def row_spans(coef: torch.Tensor, consts, row: torch.Tensor):
+    """Plain version of K4's row span (csrc/raster.cu row_span): the columns
+    [lo, hi] of pixel row `row` (int, broadcast against coef's leading
+    shape) outside which the face with float32 coefficients coef (…, 9) is
+    inside at no pixel centre, by the rounded formula (lo > hi: at none);
+    ±2^31 where no bound applies.  The bounds are proved in csrc/raster.cu;
+    tests/test_torch_kernels_cpu.py checks them exhaustively."""
+    ok, m2, alphas, recips = consts
+    b0, c0, b1, c1 = coef[..., 1], coef[..., 2], coef[..., 4], coef[..., 5]
+    gy = row.to(torch.float32) + 0.5
+    beta0 = b0 * gy + c0
+    beta1 = b1 * gy + c1
+    beta2 = (1.0 - beta0) - beta1
+    big = 2**31 - 1
+    lo = torch.full(beta0.shape, -big, dtype=torch.int64)
+    hi = torch.full(beta0.shape, big, dtype=torch.int64)
+    empty = torch.zeros(beta0.shape, dtype=torch.bool)
+    for i, beta in enumerate((beta0, beta1, beta2)):
+        alpha, recip = alphas[..., i], recips[..., i]
+        r = -m2 - beta
+        q = r * recip
+        fq = torch.floor(q).clamp(-_Q_LIMIT, _Q_LIMIT).to(torch.int64)
+        pos, neg = alpha > 0, alpha < 0
+        empty |= (pos & (q > _Q_LIMIT)) | (neg & (q < -_Q_LIMIT)) | ((alpha == 0) & (r > 0))
+        lo = torch.where(pos & (q >= -_Q_LIMIT) & (q <= _Q_LIMIT), torch.maximum(lo, fq - 1), lo)
+        hi = torch.where(neg & (q >= -_Q_LIMIT) & (q <= _Q_LIMIT), torch.minimum(hi, fq + 1), hi)
+    lo = torch.where(ok, lo, -big)
+    hi = torch.where(ok, hi, big)
+    empty &= ok
+    return torch.where(empty, big, lo), torch.where(empty, -big, hi)
 
 
 def _keys(z: torch.Tensor, face_ids: torch.Tensor) -> torch.Tensor:
@@ -154,7 +236,7 @@ def _check(verts_screen, faces, attrs, image_size, cull_sign):
 
 def _launcher():
     fn = load_library("raster").raster_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -178,6 +260,15 @@ def raster(verts_screen, faces, image_size, attrs=None, n_lin=0, z_grads=False, 
         return raster_plain(verts_screen, faces, image_size, attrs, n_lin, z_grads, emit_frags, cull_sign)
     refuse_grad("K4 (raster)", verts_screen, attrs)
     _check(verts_screen, faces, attrs, image_size, cull_sign)
+    out = _raster_launch(verts_screen, faces, image_size, attrs, n_lin, z_grads, emit_frags, cull_sign,
+                         tile_plan(image_size))
+    LAUNCHES["raster"] += 1
+    return out
+
+
+def _raster_launch(verts_screen, faces, image_size, attrs, n_lin, z_grads, emit_frags, cull_sign, tile):
+    """Launch K4 on checked arguments with `tile` = tile_plan(...)[:2] or
+    more: (tile rows, tile columns)."""
     m, v = verts_screen.shape[:2]
     f = faces.shape[0]
     n_const = 0 if attrs is None else attrs.shape[-1] - 3 * n_lin
@@ -186,7 +277,6 @@ def raster(verts_screen, faces, image_size, attrs=None, n_lin=0, z_grads=False, 
     n_attr = n_lin + n_const + (2 if z_grads else 0)
     dev = verts_screen.device
     hw = (m, image_size, image_size)
-    zbuf = torch.empty(hw, dtype=torch.int64, device=dev)
     depth = torch.empty(hw, dtype=torch.float32, device=dev)
     frags = None
     if emit_frags:
@@ -194,17 +284,18 @@ def raster(verts_screen, faces, image_size, attrs=None, n_lin=0, z_grads=False, 
                  torch.empty(hw, dtype=torch.float32, device=dev))
     planes = torch.empty(hw + (n_attr,), dtype=torch.float32, device=dev) if n_attr else None
     overflow = torch.empty((m,), dtype=torch.int32, device=dev)
+    # scratch: per mesh and band of 8 rows, a bit for each kept face whose box meets the band
+    bands = torch.empty((m, -(-image_size // 8), -(-f // 32)), dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stride = 0 if attrs is None or attrs.shape[0] == 1 else f * attrs.shape[-1]
     rc = _launcher()(
-        verts_screen.data_ptr(), faces.data_ptr(), ptr(attrs), stride, zbuf.data_ptr(), depth.data_ptr(),
-        *(ptr(t) for t in (frags or (None, None, None))), ptr(planes), overflow.data_ptr(),
-        m, v, f, image_size, image_size, n_lin, n_const, int(z_grads), cull_sign,
+        verts_screen.data_ptr(), faces.data_ptr(), ptr(attrs), stride, depth.data_ptr(),
+        *(ptr(t) for t in (frags or (None, None, None))), ptr(planes), overflow.data_ptr(), bands.data_ptr(),
+        m, v, f, image_size, image_size, tile[0], tile[1], n_lin, n_const, int(z_grads), cull_sign,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"raster_launch failed with CUDA error {rc}")
-    LAUNCHES["raster"] += 1
     return depth, frags, planes, overflow
 
 

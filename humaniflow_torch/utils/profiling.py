@@ -32,13 +32,14 @@ renderer: kernel K4, per-face texels, culling) and one train step (forward,
 backward through K2's gradient, Adam) at the default training config, with
 poses, textures and backgrounds staged on the card.
 
-With --compare it times kernels K6, K2's forward (at the paths' five row
-counts), K1 and K2's backward kernel of another checkout (PARENT_ROOT, e.g.
-the parent commit unpacked with `git archive` into a directory that
-.gitignore lists) and of this one, in turns on one card, on the same
-inputs: CUDA-event ms per call and the kernels' device ms per call
-(torch.profiler), one JSON line per turn.  With --plans it times K2's
-forward at those row counts through each of its row groups.
+With --compare it times kernels K6, K4 (the training batch), K2's forward
+(at the paths' five row counts), K1 and K2's backward kernel of another
+checkout (PARENT_ROOT, e.g. the parent commit unpacked with `git archive`
+into a directory that .gitignore lists) and of this one, in turns on one
+card, on the same inputs: CUDA-event ms per call and the kernels' device ms
+per call (torch.profiler), one JSON line per turn.  With --plans it times K2's
+forward at those row counts through each of its row groups, K4 through
+tiles of several key budgets and K1 at N = 96, 100 and 112.
 
 --fused-level sets HFT_FUSED_LEVEL=1 for the run, so that the flow pass
 goes through the fused level kernel K5; run the script with and without it
@@ -84,22 +85,27 @@ def cuda_ms(fn, iters):
     return s.elapsed_time(e) / iters
 
 
-def kernel_device_ms(fn, name: str, iters: int = 20) -> float:
+def kernel_device_ms(fn, name: str, iters: int = 20, sessions: int = 3) -> float:
     """Mean device duration (torch.profiler) of the CUDA kernels whose name
     contains `name` per call of fn, after one warm-up call: the kernel's own
     time, without the host time between launches that CUDA events around a
-    loop of short launches also count."""
+    loop of short launches also count.  A profiler session now and then
+    reports no device activity at all (seen on the H100 after many sessions
+    in one process); such a session is run again, up to `sessions` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    us = [e.time_range.elapsed_us() for e in events if name in e.name]
     if not us:
         raise RuntimeError(f"the profiler saw no kernel named like {name!r}")
     return sum(us) / 1e3 / iters
@@ -306,13 +312,58 @@ def load_checkout(root: str, name: str):
 
 K2_ROWS = (32, 72, 320, 576, 3200)  # K2's forward rows on the paths
 K2_BACKWARD_ROWS = (32, 72, 576)
+TRAIN_B = 72  # the training batch: K4's meshes
+
+
+def training_renderer(device="cuda", img: int = None):
+    """The renderer of the synthetic-data batch (scripts/run_train.py --cull:
+    perspective at the default focal length, binned, per-face texels,
+    culled) at img² or the default 256².  Its binning capacities live_cap
+    28672 and k_max 512 have no counterpart: K4 has no capacity."""
+    from ..configs import get_humaniflow_cfg_defaults
+    from ..render import TexturedIUVRenderer
+
+    cfg = get_humaniflow_cfg_defaults()
+    return TexturedIUVRenderer(
+        img_wh=img or cfg.DATA.PROXY_REP_SIZE, projection_type="perspective",
+        focal_length=cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH, rasterizer="binned", texture_sampling="face",
+        emit_uv=False, binned_cull=True, emit_overflow=True, device=device,
+    )
+
+
+def training_screen(smpl, b: int, seed: int, device="cuda", img: int = None):
+    """(training_renderer(device, img), its screen coordinates (b, 7829, 3))
+    of b synthetic bodies as the synthetic-data batch renders them: poses
+    0.3·N(0, 1), shapes 1.25·N(0, 1), flipped by the x-axis π rotation,
+    camera (0, −0.2, 2.5) + 0.05·N(0, 1)."""
+    import math
+
+    import torch
+
+    from ..models import smpl_forward
+    from ..ops import aa_rotate_rotmats, aa_rotate_translate_points, so3_exp
+
+    renderer = training_renderer(device, img)
+    g = torch.Generator(device).manual_seed(seed)
+    x_axis = torch.tensor([1.0, 0.0, 0.0], device=device)
+    with torch.inference_mode():
+        pose = so3_exp(0.3 * torch.randn((b, 24, 3), generator=g, device=device))
+        _, glob = aa_rotate_rotmats(pose[:, 0], x_axis, math.pi)
+        shape = 1.25 * torch.randn((b, 10), generator=g, device=device)
+        verts = smpl_forward(smpl, shape, pose[:, 1:], glob)["vertices"]
+        verts = aa_rotate_translate_points(verts, x_axis, math.pi, torch.zeros(3, device=device))
+        cam_t = (torch.tensor([0.0, -0.2, 2.5], device=device)
+                 + 0.05 * torch.randn((b, 3), generator=g, device=device))
+        sv = renderer._screen_verts(verts[:, renderer.dp["vertex_map"]], cam_t).contiguous()
+    return renderer, sv
 
 
 def kernel_timing_inputs(seed: int = 0) -> dict:
     """Inputs at the paths' shapes on the card: K6's 32 posed bodies at 256²
-    as the visualisation renders them (tile-sorted DensePose faces), K2's
-    (B, V = 6890) arguments at K2_ROWS, K1's at (32, 100), and cotangents
-    for K2's backward."""
+    as the visualisation renders them (tile-sorted DensePose faces), K4's 72
+    bodies as the training batch renders them (4 constant planes, culled),
+    K2's (B, V = 6890) arguments at K2_ROWS, K1's at (32, 100), and
+    cotangents for K2's backward."""
     import math
 
     import torch
@@ -339,6 +390,10 @@ def kernel_timing_inputs(seed: int = 0) -> dict:
                                     torch.full((b, 2), 0.9, device="cuda")).contiguous()
     faces = renderer.dp["faces"]
     out = {"k6": (sv, faces[tile_sort_order(sv[0], faces)].contiguous(), 256)}
+    train_renderer, train_sv = training_screen(smpl, TRAIN_B, seed + 42)
+    train_faces = train_renderer.dp["faces"]
+    attrs = torch.randn((TRAIN_B, train_faces.shape[0], 4), generator=g, device="cuda")
+    out["k4"] = ((train_sv, train_faces, train_renderer.img_wh), dict(attrs=attrs, emit_frags=False, cull_sign=1))
 
     def args(rows):
         betas = torch.randn((rows, 10), generator=g, device="cuda")
@@ -356,7 +411,7 @@ def kernel_timing_inputs(seed: int = 0) -> dict:
 
 def time_kernels(pkg, inputs: dict, iters: int = 20, only: str = "") -> dict:
     """{kernel and shape: (CUDA-event ms per call over `iters` calls, device
-    ms per call from torch.profiler)} of K6, K2's forward, K1 and K2's
+    ms per call from torch.profiler)} of K6, K4, K2's forward, K1 and K2's
     backward kernel through the wrappers of package `pkg` (a
     humaniflow_torch, possibly another checkout's from load_checkout), those
     whose name starts with `only`.  The event times include the wrapper's
@@ -365,7 +420,10 @@ def time_kernels(pkg, inputs: dict, iters: int = 20, only: str = "") -> dict:
 
     lbs = importlib.import_module(f"{pkg.__name__}.models.cuda_lbs")
     tiled = importlib.import_module(f"{pkg.__name__}.render.cuda_tiled")
-    calls = {"K6 B=32 256²": lambda: tiled.rasterize_tiled(*inputs["k6"])}
+    raster = importlib.import_module(f"{pkg.__name__}.render.cuda_raster")
+    k4_args, k4_kw = inputs["k4"]
+    calls = {"K6 B=32 256²": lambda: tiled.rasterize_tiled(*inputs["k6"]),
+             f"K4 B={TRAIN_B} 256²": lambda: raster.raster(*k4_args, **k4_kw)}
     for rows, a in inputs["k2"].items():
         calls[f"K2 forward rows={rows}"] = lambda a=a: lbs.smpl_verts(*a)
     calls["K1 G=32 N=100"] = lambda: lbs.smpl_moments(*inputs["k1"])
@@ -398,9 +456,57 @@ def time_forward_plans(iters: int = 20) -> dict:
     return out
 
 
+def time_raster_plans(iters: int = 20) -> dict:
+    """K4 at the training shape through tiles of several key budgets
+    (render/cuda_raster.py::tile_plan(256, keys)), each checked equal to the
+    default tile's output: {keys: (CUDA-event ms, device ms)} per call,
+    printed as one JSON line."""
+    import json
+
+    import torch
+
+    from ..render import cuda_raster
+
+    (sv, faces, img), kw = kernel_timing_inputs()["k4"]
+    want = cuda_raster.raster(sv, faces, img, **kw)
+    out = {}
+    for keys in (2048, 4096, 8192, 12288, 16384, cuda_raster.MAX_TILE_KEYS):
+        tile = cuda_raster.tile_plan(img, keys)
+        fn = lambda t=tile: cuda_raster._raster_launch(sv, faces, img, kw["attrs"], 0, False, False, 1, t)  # noqa: E731
+        got = fn()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
+            raise AssertionError(f"K4 with tile {tile} differs from the default tile")
+        out[keys] = (cuda_ms(fn, iters), kernel_device_ms(fn, "", iters))  # both passes and their memsets
+    print(json.dumps({"K4 at B=72 256², ms by tile keys (rows, cols, row tiles, col tiles)": {
+        f"{k} {cuda_raster.tile_plan(img, k)}": [round(x, 5) for x in v] for k, v in out.items()},
+        "default": cuda_raster.TILE_KEYS}))
+    return out
+
+
+def time_moments_rows(iters: int = 20) -> dict:
+    """K1 at G = 32 with N = 96, 100 and 112 rows a group (six full 16-row
+    passes over the basis; six and one pass shared by four groups' tails;
+    seven full passes): {label: (CUDA-event ms, device ms of the K1
+    kernels)} per call, printed as one JSON line."""
+    import json
+
+    import torch
+
+    from ..models import cuda_lbs
+
+    args = kernel_timing_inputs()["k1"]
+    out = {}
+    for n in (96, 100, 112):  # the first n rows of each group; past 100, its first rows again
+        a = tuple(torch.cat([t, t], dim=1)[:, :n].contiguous() for t in args[:3]) + args[3:]
+        fn = lambda a=a: cuda_lbs.smpl_moments(*a)  # noqa: E731
+        out[f"N={n}"] = (cuda_ms(fn, iters), kernel_device_ms(fn, "moments", iters))
+    print(json.dumps({"K1 at G=32, ms": {k: [round(x, 5) for x in v] for k, v in out.items()}}))
+    return out
+
+
 def compare_checkouts(parent_root: str, turns: str = "pccp", only: str = "") -> dict:
-    """K6, K2's forward, K1 and K2's backward (those whose name starts with
-    `only`) of the parent checkout at `parent_root` and of this one, timed
+    """K6, K4, K2's forward, K1 and K2's backward (those whose name starts
+    with `only`) of the parent checkout at `parent_root` and of this one, timed
     in turns on one card (p = parent, c = change; default parent, change,
     change, parent) on the same inputs; prints one JSON line per turn and
     returns {label: [results per turn]}."""
@@ -542,11 +648,12 @@ def main(argv=None) -> int:
     parser.add_argument("--protocol", choices=("ssp3d", "3dpw"), default=None)
     parser.add_argument("--train", action="store_true", help="profile one synthetic batch and one train step")
     parser.add_argument("--compare", metavar="PARENT_ROOT", default=None,
-                        help="time K6, K2 (forward and backward kernel) and K1 of the checkout at PARENT_ROOT and "
+                        help="time K6, K4, K2 (forward and backward kernel) and K1 of the checkout at PARENT_ROOT and "
                              "of this one in turns, parent, change, change, parent")
     parser.add_argument("--only", default="", help="with --compare: only the kernels whose name starts so")
     parser.add_argument("--plans", action="store_true",
-                        help="time K2's forward through every row group at the paths' row counts")
+                        help="time K2's forward through every row group at the paths' row counts, K4 through "
+                             "several tiles and K1 at N = 96, 100 and 112")
     parser.add_argument("--fused-level", action="store_true",
                         help="run the flow through the fused level kernel (HFT_FUSED_LEVEL=1)")
     args = parser.parse_args(argv)
@@ -563,6 +670,8 @@ def main(argv=None) -> int:
         return 0
     if args.plans:
         time_forward_plans()
+        time_raster_plans()
+        time_moments_rows()
         return 0
     batch = args.batch or (72 if args.train else 32)
     if args.protocol is not None:

@@ -74,7 +74,8 @@ def test_smpl_verts_kernel_matches_plain_at_every_plan(rows, v):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,v", [((3, 7), 1000), ((32, 100), 6890)])
+@pytest.mark.parametrize("rows,v", [((1, 1), 1000), ((3, 7), 1000), ((2, 17), 6890), ((32, 10), 6890),
+                                    ((32, 100), 6890), ((4, 101), 6890)])
 def test_smpl_moments_kernel_matches_plain(rows, v):
     _require_cuda()
     args = _kernel_inputs_cuda(rows, v)
@@ -85,6 +86,25 @@ def test_smpl_moments_kernel_matches_plain(rows, v):
     want = cuda_lbs.smpl_verts_moments_plain(*args)
     scale = want.abs().amax(dim=(0, 2, 3), keepdim=True)
     assert float(((got - want).abs() / scale).max()) <= MOM_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, v", [((3, 7), 1000), ((3, 4), 1000), ((5, 17), 1000), ((4, 101), 6890),
+                                     ((32, 100), 6890)])
+def test_smpl_moments_matches_plain_and_repeats_its_bits(rows, v):
+    """K1 within the tolerance of the twin at ragged and full-width shapes
+    (N % 16 of 7, 4, 1, 5 and 4, so with and without the blocks that take
+    four groups' last rows; G not a multiple of 4), and the same bits on two
+    launches."""
+    _require_cuda()
+    args = _kernel_inputs_cuda(rows, v, seed=1)
+    got = cuda_lbs.smpl_moments(*args)
+    again = cuda_lbs.smpl_moments(*args)
+    torch.cuda.synchronize()
+    want = cuda_lbs.smpl_verts_moments_plain(*args)
+    scale = want.abs().amax(dim=(0, 2, 3), keepdim=True)
+    assert float(((got - want).abs() / scale).max()) <= MOM_RTOL
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -326,6 +346,120 @@ def test_raster_kernel_matches_plain_bit_for_bit(img, cull_sign):
         assert torch.equal(overflow, want[3]), name
         assert bool((depth < 1e9).any()), name
     assert overflow.tolist() == [1, 1]  # the ragged set's out-of-range face
+
+
+def _assert_raster_equal(got, want, name):
+    """K4's outputs equal its twin's bit for bit: depth, fragments, planes
+    and overflow."""
+    depth, frags, planes, overflow = got
+    assert torch.equal(depth, want[0]), name
+    assert (frags is None) == (want[1] is None), name
+    if frags is not None:
+        for a, b in zip(frags, want[1]):
+            assert torch.equal(a, b), name
+    assert (planes is None) == (want[2] is None), name
+    if planes is not None:
+        assert torch.equal(planes, want[2]), name
+    assert torch.equal(overflow, want[3]), name
+
+
+def _raster_both(sv, faces, img, **kw):
+    """K4 (one launch, counted) and its twin on the same arguments."""
+    from humaniflow_torch.render import cuda_raster
+
+    before = cuda_raster.LAUNCHES["raster"]
+    got = cuda_raster.raster(sv, faces, img, **kw)
+    torch.cuda.synchronize()
+    assert cuda_raster.LAUNCHES["raster"] == before + 1
+    return got, cuda_raster.raster_plain(sv, faces, img, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img", [200, 256, 384, 1024])
+def test_raster_kernel_matches_plain_across_tiles(img):
+    """Image sizes whose tile plan has several row tiles (200, 256) and
+    several column tiles too (384, 1024): posed bodies, and at 1024² the
+    faces across band borders of utils/profiling.py::coverage_cases (a NaN
+    vertex, two indices out of range)."""
+    _require_cuda()
+    from humaniflow_torch.render import cuda_raster
+    from humaniflow_torch.utils.profiling import coverage_cases
+
+    _, _, row_tiles, col_tiles = cuda_raster.tile_plan(img)
+    assert row_tiles > 1 and (col_tiles > 1) == (img > cuda_raster.TILE_COLS)
+    if img <= 384:
+        sv, faces = _posed_screen(img, b=3, seed=img)
+    else:
+        sv, faces, _, _ = coverage_cases("cuda")["band borders at 1024², NaN vertex, 2 indices out of range"]
+    f = faces.shape[0]
+    for name, kw in (("training flags", dict(attrs=_raster_attrs(f, 0, 4, 1, sv.shape[0]), emit_frags=False,
+                                             cull_sign=1)),
+                     ("fragments, 2 linear + 1 constant, z_grads", dict(attrs=_raster_attrs(f, 2, 1, 2), n_lin=2,
+                                                                        z_grads=True))):
+        got, want = _raster_both(sv, faces, img, **kw)
+        _assert_raster_equal(got, want, name)
+        assert bool((got[0] < 1e9).any()), name
+    if img == 1024:
+        assert got[3].tolist() == [2, 2, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull_sign", [-1, 0, 1])
+@pytest.mark.parametrize("emit_frags", [False, True])
+@pytest.mark.parametrize("n_lin,n_const,z_grads", [(0, 0, False), (0, 0, True), (0, 4, False), (1, 0, False),
+                                                   (2, 1, True), (3, 2, False)])
+def test_raster_kernel_matches_plain_with_every_flag(cull_sign, emit_frags, n_lin, n_const, z_grads):
+    """Every combination of culling, fragments, linear and constant planes
+    and depth gradients, on two posed bodies at 128² (two row tiles)."""
+    _require_cuda()
+    sv, faces = _posed_screen(128, b=2, seed=5)
+    attrs = _raster_attrs(faces.shape[0], n_lin, n_const, 6) if n_lin + n_const else None
+    got, want = _raster_both(sv, faces, 128, attrs=attrs, n_lin=n_lin, z_grads=z_grads, emit_frags=emit_frags,
+                             cull_sign=cull_sign)
+    _assert_raster_equal(got, want, "flags")
+    assert bool((got[0] < 1e9).any())
+
+
+def _raster_edge_case(name):
+    """(verts_screen, faces, image size, cull_sign) of K4's edge cases."""
+    from humaniflow_torch.utils.profiling import coverage_cases, sliver_case
+
+    if name == "slivers":
+        return (*sliver_case(256), 256, 0)
+    if name in ("whole-image face", "2,000 large boxes", "all culled, and its mirror all kept"):
+        return coverage_cases("cuda")[name]
+    sv, faces = _posed_screen(256, b=2, seed=9)
+    if name == "non-finite vertices":
+        sv = sv.clone()
+        sv[0, 100:400] = math.nan
+        sv[1, 500:520, 2] = math.inf
+        sv[1, 700:720, 0] = -math.inf
+        return sv.contiguous(), faces, 256, 1
+    v = sv.shape[1]
+    extra = torch.tensor([[0, 1, v], [-1, 2, 3], [4, v + 7, 5]], dtype=torch.int32, device="cuda")
+    return sv, torch.cat([faces, extra]).contiguous(), 256, 0  # index out of range
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["slivers", "whole-image face", "2,000 large boxes",
+                                  "all culled, and its mirror all kept", "non-finite vertices",
+                                  "index out of range"])
+def test_raster_kernel_matches_plain_on_edge_cases(name):
+    """Near-degenerate faces (utils/profiling.py::sliver_case), a face over
+    the whole image, more large boxes than a block's queue holds, a mesh
+    whose faces are all culled, NaN and infinite coordinates, and indices
+    out of range (overflow equal to the twin's, counted once per mesh)."""
+    _require_cuda()
+    sv, faces, img, cull = _raster_edge_case(name)
+    attrs = _raster_attrs(faces.shape[0], 1, 1, 7)
+    got, want = _raster_both(sv, faces, img, attrs=attrs, n_lin=1, z_grads=True, cull_sign=cull)
+    _assert_raster_equal(got, want, name)
+    covered = (got[0] < 1e9).flatten(1).sum(1)
+    if name.startswith("all culled"):
+        assert covered.tolist()[0] == 0 and covered.tolist()[1] > 0
+    else:
+        assert bool((covered > 0).all())
+    assert got[3].tolist() == ([3] * sv.shape[0] if name == "index out of range" else [0] * sv.shape[0])
 
 
 @pytest.mark.cuda

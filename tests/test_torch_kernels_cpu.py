@@ -1,13 +1,16 @@
-"""K2's restructured backward, K3's band plan, K6's cull and K2's forward
-plan on the CPU.
+"""K2's restructured backward, K3's band plan, K6's cull, K2's forward plan,
+K4's tile plan and K1's row chunks on the CPU.
 
 K2's backward is a per-vertex part, (dp, G12), computed by a kernel on the
 card and by its plain twin here, followed by float32 products over V.  The
 twin and the whole backward are held against the JAX package's custom VJP
 (`_lbs_bwd`, `_fused_bwd` of humaniflow_tpu/models/pallas_lbs.py) on the
-same numpy inputs.  K3's band plan is checked to cover every row once
-within its shared-memory budget.  K6's cull (the plain versions of the
-kernel's per-face constants and test, render/cuda_tiled.py) is held against
+same numpy inputs.  K3's band plan and K4's tile plan are checked to cover
+every row (every pixel) once within their shared-memory budgets, K1's row
+chunks every row of a group once with no empty slot, and K4's row spans
+never to drop a pixel the per-pixel formula finds inside.  K6's cull (the
+plain versions of the kernel's per-face constants and test,
+render/cuda_tiled.py) is held against
 the per-pixel float32 formula of the exact scan on near-degenerate faces:
 it never skips a face that the formula finds inside a pixel centre of the
 sub-block; and on posed bodies it skips most (face, sub-block) pairs.  The
@@ -25,7 +28,7 @@ from _torch_parity import rel_err, t
 
 import humaniflow_tpu.models.pallas_lbs as jlbs
 from humaniflow_torch.models import cuda_lbs
-from humaniflow_torch.render import cuda_coverage, cuda_tiled
+from humaniflow_torch.render import cuda_coverage, cuda_raster, cuda_tiled
 from humaniflow_torch.render.rasterizer import _barycentrics
 from humaniflow_torch.utils.profiling import sliver_case
 
@@ -268,3 +271,149 @@ def test_k2_forward_plan_covers_every_row_once_and_fills_the_card():
     assert -(-6890 // verts) * -(-32 // rows) >= 2 * sms
     assert cuda_lbs.forward_plan(3200, 6890, sms) == 0
     assert cuda_lbs.FORWARD_PLANS[0][0] == max(rows for rows, _ in cuda_lbs.FORWARD_PLANS)
+
+
+def test_k4_tile_plan_fits_every_image_size():
+    """For every image size K4 admits (1 to 32,768): the tile's keys fit the
+    default budget (within the kernel's limit), its rows and columns tile
+    the image with no empty tile, and the grid stays within the launch's
+    limit at 72 meshes."""
+    assert cuda_raster.TILE_KEYS <= cuda_raster.MAX_TILE_KEYS
+    for size in range(1, 32769):
+        rows, cols, row_tiles, col_tiles = cuda_raster.tile_plan(size)
+        assert 1 <= rows <= size and 1 <= cols <= min(size, cuda_raster.TILE_COLS)
+        assert rows * cols <= cuda_raster.TILE_KEYS
+        assert (row_tiles - 1) * rows < size <= row_tiles * rows
+        assert (col_tiles - 1) * cols < size <= col_tiles * cols
+        assert 72 * row_tiles * col_tiles < 2**31
+
+
+@pytest.mark.parametrize("size", [1, 33, 200, 256, 384, 1024, 32768])
+def test_k4_tile_plan_covers_every_pixel_once(size):
+    """Over the grid of 3 meshes, each mesh's pixel lies in exactly one
+    block's tile, with the blocks mapped to tiles as the kernel maps them
+    (cuda_raster.block_tile: row tiles from the middle outwards)."""
+    meshes = 3
+    rows, cols, row_tiles, col_tiles = cuda_raster.tile_plan(size)
+    row_hits = np.zeros((meshes, size), np.int64)
+    col_hits = np.zeros((meshes, size), np.int64)
+    tiles = [cuda_raster.block_tile(b, meshes, row_tiles, col_tiles) for b in range(meshes * row_tiles * col_tiles)]
+    assert len(set(tiles)) == len(tiles)
+    for m, rt, ct in tiles:
+        assert 0 <= m < meshes and 0 <= rt < row_tiles and 0 <= ct < col_tiles
+        if ct == 0:
+            row_hits[m, rt * rows:min(size, (rt + 1) * rows)] += 1
+        if rt == 0:
+            col_hits[m, ct * cols:min(size, (ct + 1) * cols)] += 1
+    assert (row_hits == 1).all() and (col_hits == 1).all()
+    if size <= 1024:
+        hits = np.zeros((meshes, size, size), np.int64)
+        for m, rt, ct in tiles:
+            hits[m, rt * rows:(rt + 1) * rows, ct * cols:(ct + 1) * cols] += 1
+        assert (hits == 1).all()
+    if row_tiles > 2:  # the middle row tile comes first
+        assert tiles[0][1] == (row_tiles - 1) // 2
+
+
+def test_k4_tile_plan_fills_the_card_at_the_training_shape():
+    """72 meshes at 256² (the training render) give at least one block per
+    SM of the H100's 132, in 16-row tiles of whole rows (32 KB of keys)."""
+    rows, cols, row_tiles, col_tiles = cuda_raster.tile_plan(256)
+    assert (rows, cols) == (16, 256) and rows * cols * 8 == 32 * 1024
+    assert 72 * row_tiles * col_tiles >= 132
+
+
+@pytest.mark.parametrize("n", [1, 4, 7, 16, 17, 100, 101])
+def test_k1_row_chunks_cover_every_row_once(n):
+    """K1's chunks for 9 groups of n rows, as the kernel stages them
+    (models/cuda_lbs.py::moments_blocks): every row of every group exactly
+    once; each block's chunks are 16 rows, then at most one each of 8, 4, 2
+    and 1 in that order, so no slot is empty; a group's block holds only
+    that group's rows, and the groups' last n % 16 rows (when 1 to 4) go
+    four groups to a chunk."""
+    groups = 9
+    hits = np.zeros((groups, n), np.int64)
+    blocks = cuda_lbs.moments_blocks(groups, n)
+    tail = cuda_lbs.moments_tail(n)
+    assert len(blocks) == groups + (-(-groups // 4) if tail else 0)
+    for y, chunks in enumerate(blocks):
+        sizes = [len(c) for c in chunks]
+        total = sum(sizes)
+        assert sizes == [16] * (total // 16) + [r for r in (8, 4, 2, 1) if total % 16 & r], y
+        for chunk in chunks:
+            for group, row in chunk:
+                hits[group, row] += 1
+                assert group == y if y < groups else row >= n - tail
+    assert (hits == 1).all()
+    if n == 100:  # each group's own rows in six chunks of 16; the tails of four groups in one more
+        blocks = cuda_lbs.moments_blocks(32, 100)
+        assert [len(c) for c in blocks[0]] == [16] * 6 and [len(c) for c in blocks[32]] == [16]
+        assert len(blocks) == 40 and sum(len(b) for b in blocks) == 200
+
+
+def _k4_span_cases(img):
+    """(verts_screen, faces) at img²: the near-degenerate faces of
+    utils/profiling.py::sliver_case (both meshes), a posed body as the
+    training render sees it and, at 128², the 600 faces of _cull_soup (on
+    the pixel grid, huge, zero-area)."""
+    from humaniflow_torch.models import synthetic_smpl
+    from humaniflow_torch.utils.profiling import training_screen
+
+    sv, faces = sliver_case(img, device="cpu")
+    renderer, body = training_screen(synthetic_smpl(num_verts=6890, device="cpu"), 1, 8, device="cpu", img=img)
+    cases = [(sv, faces.long()), (body, renderer.dp["faces"].long())]
+    if img == 128:
+        cases.append(_cull_soup(np.random.default_rng(4)))
+    return cases
+
+
+@pytest.mark.parametrize("img", [128, 256])
+def test_k4_row_spans_never_drop_a_pixel_the_rounded_formula_finds_inside(img):
+    """Every pixel centre of an img² image (128², and the training render's
+    256²: the span's margin depends on the size), for every face of the
+    cases: where the float32 per-pixel formula of K4 and its twin (w0, w1,
+    w2 ≥ 0 from the edge-plane coefficients) puts the centre inside a face
+    with finite coefficients, the pixel's column lies in the face's row
+    span.  The slivers' rounding claims centres outside their boxes, so
+    this is the formula's own rounding, not the geometry.  On the posed
+    body the spans leave at most half of the box pixels to test."""
+    cols = torch.arange(img)
+    gx = (cols.to(torch.float32) + 0.5)[None, None, :]
+    checked = inside_total = span_px = box_px = 0
+    for verts, faces in _k4_span_cases(img):
+        for f0 in range(0, faces.shape[0], 400):
+            tri = verts[:, faces[f0:f0 + 400]]  # (M, n, 3, 3)
+            coef = cuda_raster._edge_plane_coeffs(tri.reshape(tri.shape[:2] + (9,)))
+            consts = cuda_raster.span_constants(coef, img)
+            finite = torch.isfinite(coef[..., :6]).all(-1)[..., None]
+            c = coef[..., None, :]
+            a0x, a1x = c[..., 0] * gx, c[..., 3] * gx  # the same in every row: (M, n, W)
+            for row in range(img):
+                gy = torch.tensor(row + 0.5, dtype=torch.float32)
+                w0 = (a0x + c[..., 1] * gy) + c[..., 2]
+                w1 = (a1x + c[..., 4] * gy) + c[..., 5]
+                inside = (torch.minimum(torch.minimum(w0, w1), (1.0 - w0) - w1) >= 0) & finite  # (M, n, W)
+                lo, hi = cuda_raster.row_spans(coef, consts, torch.tensor(row))
+                outside_span = (cols < lo[..., None]) | (cols > hi[..., None])
+                assert not bool((inside & outside_span).any()), (f0, row)
+                checked += inside.numel()
+                inside_total += int(inside.sum())
+        if faces.shape[0] > 10000:  # the posed body: spans against boxes
+            tri = verts[:, faces]
+            x, y = tri[..., 0], tri[..., 1]
+            x_lo = (torch.floor(x.amin(-1)) - 1).clamp(min=0)
+            x_hi = (torch.ceil(x.amax(-1)) + 1).clamp(max=img - 1)
+            y_lo = (torch.floor(y.amin(-1)) - 1).clamp(min=0)
+            y_hi = (torch.ceil(y.amax(-1)) + 1).clamp(max=img - 1)
+            coef = cuda_raster._edge_plane_coeffs(tri.reshape(tri.shape[:2] + (9,)))
+            consts = cuda_raster.span_constants(coef, img)
+            area = (x[..., 1] - x[..., 0]) * (y[..., 2] - y[..., 0]) - (x[..., 2] - x[..., 0]) * (y[..., 1] - y[..., 0])
+            kept = area > 1e-9
+            for row in range(img):
+                lo, hi = cuda_raster.row_spans(coef, consts, torch.tensor(row))
+                rows_in = kept & (y_lo <= row) & (y_hi >= row) & (x_lo <= x_hi)
+                a, b = torch.maximum(lo, x_lo.long()), torch.minimum(hi, x_hi.long())
+                span_px += int(torch.where(rows_in, (b - a + 1).clamp(min=0), 0).sum())
+                box_px += int(torch.where(rows_in, x_hi - x_lo + 1, 0).sum())
+    assert checked > 10**8 and inside_total > 10**5
+    assert 0 < span_px <= 0.5 * box_px
