@@ -8,12 +8,16 @@ hypernet MLP → two linear-rational splines per coupling, then the radial
 tanh, for all of the level's parts at once.  Forward (sampling) direction
 only, no log-det, as in the JAX package.
 
-The kernel reads the port's natural layouts: z (..., P, 3), ctx (..., P, C)
-and the part-stacked DenseNN weights (num_parts, out, in) at the rows that
-the level's `parts` index tensor names, so no per-level weight gather is
-launched.  The TPU kernel's column reorder, the pad of the derivative block
-from 7 to 8 and its transposed (features, rows) layout served the TPU's
-vector registers and have no counterpart here.
+The kernel reads z (..., P, 3) and ctx (..., P, C) in the port's natural
+layouts, and the hypernet weights packed by `level_pack`: for each part and
+coupling one contiguous buffer, laid out in the order the kernel reads its
+tensor-core (mma.sync m16n8k8) fragments.  The pack is made on the weights'
+device, once, and kept in the plan cache until a hypernet tensor moves,
+changes shape or is written in place (its `_version`, which
+`load_state_dict` and optimiser steps bump).  A block carries 64 rows of one
+part, 16 a warp.  The TPU kernel's column reorder, the pad of the derivative
+block from 7 to 8 and its transposed (features, rows) layout served the
+TPU's vector registers; the pack here serves the mma fragments.
 
 `flow_forward_level` computes the twin when the tensors lie on the CPU.  For
 CUDA tensors it launches K5, or raises on a wrong dtype, device, layout,
@@ -27,6 +31,7 @@ import ctypes
 import math
 import weakref
 
+import numpy as np
 import torch
 
 from ..utils.cuda_build import load_library, refuse_grad
@@ -39,8 +44,12 @@ COUNT_BINS = 8  # the kernel is specialised to 8 spline bins (the default)
 MAX_COUPLINGS = 8  # csrc/flow_level.cu kMaxCouplings
 MAX_LAYERS = 8  # kMaxLayers
 MAX_WIDTH = 128  # context and hidden widths the wrapper accepts
-OUT_PAD = 32  # kOutPad: a layer's outputs are padded to a multiple of 32 in shared memory
+WARPS = 4  # kWarps: a block's warps, 16 rows (one mma tile) each
+SCRATCH_FLOATS = 64 * 18  # kScratchFloats: a warp's spline scratch
 MAX_SHARED_BYTES = 232448  # dynamic shared memory of one block on sm_90
+# The last layer's 62 outputs w (2, 8), h (2, 8), d (2, 7), l (2, 8) as the
+# kernel reads them: 8 columns per (kind, dimension), d's 8th a zero pad.
+_PARAM_KINDS = ((0, 8), (16, 8), (32, 7), (46, 8))  # (first output, bins per dimension)
 
 
 def supports_flow(flow: ConditionalFlow) -> bool:
@@ -92,17 +101,20 @@ class _Params(ctypes.Structure):
     """csrc/flow_level.cu FlowLevelParams, field for field."""
 
     _fields_ = [
-        ("weight", (ctypes.c_void_p * MAX_LAYERS) * MAX_COUPLINGS),
-        ("bias", (ctypes.c_void_p * MAX_LAYERS) * MAX_COUPLINGS),
-        ("dims", (ctypes.c_int * (MAX_LAYERS + 1)) * MAX_COUPLINGS),
+        ("packed", ctypes.c_void_p),
+        ("layer_off", (ctypes.c_int * MAX_LAYERS) * MAX_COUPLINGS),
+        ("layer_floats", (ctypes.c_int * MAX_LAYERS) * MAX_COUPLINGS),
+        ("k_steps", (ctypes.c_int * MAX_LAYERS) * MAX_COUPLINGS),
+        ("n_tiles", (ctypes.c_int * MAX_LAYERS) * MAX_COUPLINGS),
         ("perm", (ctypes.c_int * 3) * MAX_COUPLINGS),
         ("bound", ctypes.c_float * MAX_COUPLINGS),
         ("n_layers", ctypes.c_int * MAX_COUPLINGS),
         ("n_couplings", ctypes.c_int),
         ("num_parts", ctypes.c_int),
+        ("coupling_floats", ctypes.c_int),
+        ("c_dim", ctypes.c_int),
+        ("max_tiles", ctypes.c_int),
         ("radius", ctypes.c_float),
-        ("weight_floats", ctypes.c_int),
-        ("act_rows", ctypes.c_int),
     ]
 
 
@@ -121,9 +133,87 @@ def _check_tensor(name, t, device, shape, dtype=torch.float32):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _output_columns(width: int, last: bool) -> np.ndarray:
+    """For each packed output column of a layer, the output feature it
+    holds, −1 for a pad: hidden layers in order, padded to a multiple of 16;
+    the last layer as _PARAM_KINDS."""
+    if not last:
+        cols = np.arange(_round_up(width, 16))
+        return np.where(cols < width, cols, -1)
+    cols = np.arange(64)
+    kind, dim, b = cols // 16, cols % 16 // 8, cols % 8
+    first = np.array([k[0] for k in _PARAM_KINDS])[kind]
+    bins = np.array([k[1] for k in _PARAM_KINDS])[kind]
+    return np.where(b < bins, first + dim * bins + b, -1)
+
+
+def _input_features(layer: int, c_dim: int, prev_columns: np.ndarray) -> np.ndarray:
+    """(k-steps, 8): the input feature (−1: zero) behind logical k of each
+    k-step.  The first layer: k-step 2q + h takes context features 16q + 4t
+    + 2h (k = t) and 16q + 4t + 2h + 1 (k = t + 4), as a lane's float4 of
+    the contexts holds them.  A later layer: the previous accumulator's
+    column 8·ks + 2t (k = t) and 8·ks + 2t + 1 (k = t + 4)."""
+    k = np.arange(8)
+    if layer == 0:
+        ks = np.arange(2 * -(-c_dim // 16))[:, None]
+        f = 16 * (ks // 2) + 4 * (k % 4) + 2 * (ks % 2) + k // 4
+        return np.where(f < c_dim, f, -1)
+    ks = np.arange(len(prev_columns) // 8)[:, None]
+    return prev_columns[8 * ks + 2 * (k % 4) + k // 4]
+
+
+def _coupling_index(dims, c_dim):
+    """The gather index of one coupling's pack into its source row [0,
+    W_0.flatten(), b_0, W_1.flatten(), b_1, ...] (index 0: zero), and per
+    layer (offset, floats, k-steps, n-tiles).  A layer's block: the B
+    fragments [k-step][n-tile pair][lane][4] with lane = 4g + t holding
+    (B[t][g], B[t + 4][g]) of the pair's two n-tiles, B[k][n] = W[output of
+    column 8·nt + n][input behind k]; then the bias by packed column; the
+    first layer then x0's weight column (input c_dim) by packed column."""
+    parts, layers, src, prev = [], [], 1, None
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    for li in range(len(dims) - 1):
+        n_in, n_out = dims[li], dims[li + 1]
+        cols = _output_columns(n_out, li == len(dims) - 2)
+        feats = _input_features(li, c_dim, prev)
+        nks, nnt = feats.shape[0], len(cols) // 8
+        ks = np.arange(nks)[:, None, None, None]
+        pair = np.arange(nnt // 2)[None, :, None, None]
+        e = np.arange(4)[None, None, None, :]
+        o = cols[8 * (2 * pair + e // 2) + g[None, None, :, None]]
+        i = feats[ks, t[None, None, :, None] + 4 * (e % 2)]
+        b_frag = np.where((o >= 0) & (i >= 0), src + o * n_in + i, 0)
+        bias = np.where(cols >= 0, src + n_out * n_in + cols, 0)
+        block = [b_frag.reshape(-1), bias]
+        if li == 0:
+            block.append(np.where(cols >= 0, src + cols * n_in + c_dim, 0))
+        block = np.concatenate(block)
+        layers.append((sum(len(b) for b in parts), len(block), nks, nnt))
+        parts.append(block)
+        src += n_out * n_in + n_out
+        prev = cols
+    return np.concatenate(parts), layers
+
+
+def _coupling_dims(coupling, c, c_dim):
+    ws = coupling.hypernet.weights
+    if len(ws) > MAX_LAYERS:
+        raise ValueError(f"at most {MAX_LAYERS} hypernet layers are supported, got {len(ws)}")
+    dims = [ws[0].shape[2]] + [w.shape[1] for w in ws]
+    if dims[0] != c_dim + 1:
+        raise ValueError(f"coupling {c} takes {dims[0] - 1} context features, the contexts have {c_dim}")
+    if max(dims[1:-1]) > MAX_WIDTH:
+        raise ValueError(f"hidden widths above {MAX_WIDTH} are not supported: {dims[1:-1]}")
+    if dims[-1] != 2 * (4 * COUNT_BINS - 1):
+        raise ValueError(f"the hypernet's output width must be {2 * (4 * COUNT_BINS - 1)}, got {dims[-1]}")
+    return dims
+
+
 def level_params(flow: ConditionalFlow, c_dim: int, device) -> _Params:
-    """The kernel's parameter block for `flow` with context width c_dim;
-    raises on a structure or a width the kernel does not take."""
+    """The kernel's parameter block for `flow` with context width c_dim
+    (without the pack's address); raises on a structure or a width the
+    kernel does not take, or a hypernet tensor off `device`."""
     if not supports_flow(flow):
         raise ValueError("the flow does not match the fused level kernel (see supports_flow)")
     blocks, radius = _plan(flow)
@@ -133,40 +223,47 @@ def level_params(flow: ConditionalFlow, c_dim: int, device) -> _Params:
         raise ValueError(f"the context width must lie in [1, {MAX_WIDTH}], got {c_dim}")
     prm = _Params()
     num_parts = flow.transforms[1].hypernet.weights[0].shape[0]
-    weight_floats = act_rows = 0
+    floats = max_tiles = 0
     for c, (perm, coupling) in enumerate(blocks):
-        ws, bs = coupling.hypernet.weights, coupling.hypernet.biases
-        if len(ws) > MAX_LAYERS:
-            raise ValueError(f"at most {MAX_LAYERS} hypernet layers are supported, got {len(ws)}")
-        dims = [ws[0].shape[2]] + [w.shape[1] for w in ws]
-        if dims[0] != c_dim + 1:
-            raise ValueError(f"coupling {c} takes {dims[0] - 1} context features, the contexts have {c_dim}")
-        if max(dims[1:-1]) > MAX_WIDTH:
-            raise ValueError(f"hidden widths above {MAX_WIDTH} are not supported: {dims[1:-1]}")
-        if dims[-1] != 2 * (4 * COUNT_BINS - 1):
-            raise ValueError(f"the hypernet's output width must be {2 * (4 * COUNT_BINS - 1)}, got {dims[-1]}")
-        floats = 0
-        for li, (w, b) in enumerate(zip(ws, bs)):
+        dims = _coupling_dims(coupling, c, c_dim)
+        for li, (w, b) in enumerate(zip(coupling.hypernet.weights, coupling.hypernet.biases)):
             _check_tensor(f"coupling {c} weight {li}", w, device, (num_parts, dims[li + 1], dims[li]))
             _check_tensor(f"coupling {c} bias {li}", b, device, (num_parts, dims[li + 1]))
-            prm.weight[c][li] = w.data_ptr()
-            prm.bias[c][li] = b.data_ptr()
-            outp = _round_up(dims[li + 1], OUT_PAD)
-            floats += outp * _round_up(dims[li], 4) + outp
-            act_rows = max(act_rows, outp)
-        weight_floats = max(weight_floats, floats)
-        for li, d in enumerate(dims):
-            prm.dims[c][li] = d
+        _, layers = _coupling_index(dims, c_dim)
+        for li, (off, n, nks, nnt) in enumerate(layers):
+            prm.layer_off[c][li], prm.layer_floats[c][li] = off, n
+            prm.k_steps[c][li], prm.n_tiles[c][li] = nks, nnt
+            max_tiles = max(max_tiles, nnt)
+        floats = max(floats, layers[-1][0] + layers[-1][1])
         for k in range(3):
             prm.perm[c][k] = perm[k]
         prm.bound[c] = coupling.bound
-        prm.n_layers[c] = len(ws)
+        prm.n_layers[c] = len(dims) - 1
     prm.n_couplings = len(blocks)
     prm.num_parts = num_parts
+    prm.coupling_floats = floats
+    prm.c_dim = c_dim
+    prm.max_tiles = 8 if max_tiles <= 8 else 16
     prm.radius = 0.0 if radius is None else radius
-    prm.weight_floats = weight_floats
-    prm.act_rows = act_rows
     return prm
+
+
+@torch.no_grad()
+def level_pack(flow: ConditionalFlow, c_dim: int) -> torch.Tensor:
+    """(num_parts, couplings, coupling floats) float32 on the weights'
+    device: each part's hypernet in the kernel's fragment order (see
+    _coupling_index), each coupling zero-padded to the largest."""
+    blocks, _ = _plan(flow)
+    ws0 = blocks[0][1].hypernet.weights[0]
+    packs = []
+    for c, (_, coupling) in enumerate(blocks):
+        idx, _ = _coupling_index(_coupling_dims(coupling, c, c_dim), c_dim)
+        src = torch.cat([ws0.new_zeros((ws0.shape[0], 1))]
+                        + [t.reshape(t.shape[0], -1) for w, b in zip(coupling.hypernet.weights,
+                                                                     coupling.hypernet.biases) for t in (w, b)], 1)
+        packs.append(src[:, torch.as_tensor(idx, device=src.device)])
+    floats = max(p.shape[1] for p in packs)
+    return torch.stack([torch.nn.functional.pad(p, (0, floats - p.shape[1])) for p in packs], 1).contiguous()
 
 
 def _library() -> ctypes.CDLL:
@@ -176,8 +273,6 @@ def _library() -> ctypes.CDLL:
         lib.flow_level_params_size.restype = ctypes.c_int
         if lib.flow_level_params_size() != ctypes.sizeof(_Params):
             raise RuntimeError("FlowLevelParams differs between csrc/flow_level.cu and its ctypes mirror")
-        lib.flow_level_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        lib.flow_level_smem_bytes.restype = ctypes.c_longlong
         lib.flow_level_launch.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.flow_level_launch.restype = ctypes.c_int
@@ -185,23 +280,38 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-_PLANS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()  # flow → {(c_dim, device): (tensors, _Params)}
+def smem_bytes(prm: _Params) -> int:
+    """Dynamic shared memory of a block (as csrc/flow_level.cu computes it
+    at launch): every coupling's pack and each warp's spline scratch."""
+    return 4 * (prm.n_couplings * prm.coupling_floats + WARPS * SCRATCH_FLOATS)
+
+
+_PLANS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()  # flow → {(c_dim, device): (key, _Params, pack)}
+
+
+def _cache_key(flow: ConditionalFlow) -> tuple:
+    """Each hypernet tensor's address, shape and version: a pack made before
+    an in-place write (load_state_dict copies into the same storage) is
+    stale."""
+    return tuple((t.data_ptr(), tuple(t.shape), t._version) for m in flow.transforms if hasattr(m, "hypernet")
+                 for t in (*m.hypernet.weights, *m.hypernet.biases))
 
 
 def _cached_plan(flow: ConditionalFlow, c_dim: int, device) -> _Params:
-    """level_params, checked against the block's shared-memory limit, built
-    once per flow, context width and device, and again when a hypernet
-    tensor moves or changes shape."""
-    tensors = tuple((t.data_ptr(), tuple(t.shape)) for m in flow.transforms if hasattr(m, "hypernet")
-                    for t in (*m.hypernet.weights, *m.hypernet.biases))
+    """level_params with the pack's address, checked against the block's
+    shared-memory limit; built once per flow, context width and device, and
+    again when a hypernet tensor moves, changes shape or is written."""
+    key = _cache_key(flow)
     plans = _PLANS.setdefault(flow, {})
     hit = plans.get((c_dim, device))
-    if hit is None or hit[0] != tensors:
+    if hit is None or hit[0] != key:
         prm = level_params(flow, c_dim, device)
-        smem = _library().flow_level_smem_bytes(c_dim, ctypes.byref(prm))
+        smem = smem_bytes(prm)
         if smem > MAX_SHARED_BYTES:
             raise ValueError(f"the level needs {smem} B of shared memory per block, more than {MAX_SHARED_BYTES}")
-        hit = plans[(c_dim, device)] = (tensors, prm)
+        pack = level_pack(flow, c_dim)
+        prm.packed = pack.data_ptr()
+        hit = plans[(c_dim, device)] = (key, prm, pack)
     return hit[1]
 
 
@@ -225,8 +335,9 @@ def flow_forward_level(flow: ConditionalFlow, z, ctx, parts):
     if rows == 0 or p == 0:
         return out
     stream = torch.cuda.current_stream(device).cuda_stream
+    ctx_vec = c_dim % 4 == 0 and ctx.data_ptr() % 16 == 0
     rc = _library().flow_level_launch(z.data_ptr(), ctx.data_ptr(), parts.data_ptr(), out.data_ptr(), rows, p,
-                                      c_dim, ctypes.byref(prm), stream)
+                                      int(ctx_vec), ctypes.byref(prm), stream)
     if rc != 0:
         raise RuntimeError(f"flow_level_launch failed with CUDA error {rc}")
     LAUNCHES["flow_level"] += 1

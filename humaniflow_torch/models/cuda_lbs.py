@@ -16,7 +16,8 @@ The counterpart of `humaniflow_tpu/models/pallas_lbs.py`:
   four groups to a chunk (`moments_tail`, `moments_blocks`).
 * K7 `lbs_skin_cm` (TPU: `_lbs_kernel` via `lbs_skin_pallas_cm`): linear
   blend skinning of channel-major posed vertices (B, 3, V), with its
-  gradient as `LBSSkin`.  No path calls it, in the JAX package (only its
+  gradient as `LBSSkin`; a block owns 512 vertices, four a thread, and 16
+  rows.  No path calls it, in the JAX package (only its
   test, tests/test_pallas_lbs.py:22) or in the port: the SMPL forward fuses
   skinning into K1 and K2.
 

@@ -33,7 +33,8 @@ backward through K2's gradient, Adam) at the default training config, with
 poses, textures and backgrounds staged on the card.
 
 With --compare it times kernels K6, K4 (the training batch), K2's forward
-(at the paths' five row counts), K1 and K2's backward kernel of another
+(at the paths' five row counts), K1, K2's backward kernel, K5 (the 8
+levels of one AR pass at 3,232 rows, summed) and K7 (3,200 rows) of another
 checkout (PARENT_ROOT, e.g. the parent commit unpacked with `git archive`
 into a directory that .gitignore lists) and of this one, in turns on one
 card, on the same inputs: CUDA-event ms per call and the kernels' device ms
@@ -312,6 +313,8 @@ def load_checkout(root: str, name: str):
 
 K2_ROWS = (32, 72, 320, 576, 3200)  # K2's forward rows on the paths
 K2_BACKWARD_ROWS = (32, 72, 576)
+K5_ROWS = 32 * 101  # one AR pass of distribution inference: B = 32, N + 1 = 101
+K7_ROWS = 32 * 100
 TRAIN_B = 72  # the training batch: K4's meshes
 
 
@@ -362,13 +365,16 @@ def kernel_timing_inputs(seed: int = 0) -> dict:
     """Inputs at the paths' shapes on the card: K6's 32 posed bodies at 256²
     as the visualisation renders them (tile-sorted DensePose faces), K4's 72
     bodies as the training batch renders them (4 constant planes, culled),
-    K2's (B, V = 6890) arguments at K2_ROWS, K1's at (32, 100), and
-    cotangents for K2's backward."""
+    K2's (B, V = 6890) arguments at K2_ROWS, K1's at (32, 100), cotangents
+    for K2's backward, K5's base samples 0.6·N(0, 1) and contexts ELU(N(0,
+    1)) for each of the default model's 8 levels at K5_ROWS, and K7's
+    arguments at K7_ROWS and V = 6890."""
     import math
 
     import torch
 
-    from ..models import smpl_forward, synthetic_smpl
+    from ..configs import get_humaniflow_cfg_defaults
+    from ..models import HumaniflowModel, smpl_forward, synthetic_smpl
     from ..models.smpl import _kernel_inputs
     from ..ops import aa_rotate_translate_points, so3_exp
     from ..render import TexturedIUVRenderer
@@ -406,17 +412,31 @@ def kernel_timing_inputs(seed: int = 0) -> dict:
     a = args(32 * 100)
     out["k1"] = tuple(t.reshape(32, 100, *t.shape[1:]) for t in a[:3]) + a[3:]
     out["k2_grad"] = {rows: torch.randn((rows, 3, 6890), generator=g, device="cuda") for rows in K2_BACKWARD_ROWS}
+    cfg = get_humaniflow_cfg_defaults()
+    levels = HumaniflowModel(cfg.MODEL, device="cpu").levels
+    out["k5"] = [(0.6 * torch.randn((K5_ROWS, len(parts), 3), generator=g, device="cuda"),
+                  torch.nn.functional.elu(torch.randn((K5_ROWS, len(parts), cfg.MODEL.NORM_FLOW.CONTEXT_DIM),
+                                                      generator=g, device="cuda")))
+                 for parts in levels]
+    out["k7"] = (torch.softmax(3.0 * torch.randn((6890, 24), generator=g, device="cuda"), -1),
+                 0.5 * torch.randn((K7_ROWS, 24, 12), generator=g, device="cuda"),
+                 torch.randn((K7_ROWS, 3, 6890), generator=g, device="cuda"))
     return out
 
 
 def time_kernels(pkg, inputs: dict, iters: int = 20, only: str = "") -> dict:
     """{kernel and shape: (CUDA-event ms per call over `iters` calls, device
-    ms per call from torch.profiler)} of K6, K4, K2's forward, K1 and K2's
-    backward kernel through the wrappers of package `pkg` (a
-    humaniflow_torch, possibly another checkout's from load_checkout), those
-    whose name starts with `only`.  The event times include the wrapper's
-    host time between launches; the device times are the kernels' own."""
+    ms per call from torch.profiler)} of K6, K4, K2's forward, K1, K2's
+    backward kernel, K5 (one AR pass: the 8 levels' launches) and K7
+    through the wrappers of package `pkg` (a humaniflow_torch, possibly
+    another checkout's from load_checkout), those whose name starts with
+    `only`.  K5 runs the flow of `pkg`'s own default model, built from seed
+    0, so that each checkout's wrapper sees its own transform classes.  The
+    event times include the wrapper's host time between launches; the
+    device times are the kernels' own."""
     import importlib
+
+    import torch
 
     lbs = importlib.import_module(f"{pkg.__name__}.models.cuda_lbs")
     tiled = importlib.import_module(f"{pkg.__name__}.render.cuda_tiled")
@@ -431,6 +451,21 @@ def time_kernels(pkg, inputs: dict, iters: int = 20, only: str = "") -> dict:
         a = inputs["k2"][rows]
         calls[f"K2 backward kernel rows={rows}"] = (
             lambda a=a, grad=grad: lbs.smpl_verts_backward_vertex(grad, True, True, *a))
+    k5 = f"K5 AR pass rows={K5_ROWS}"
+    if k5.startswith(only):
+        level = importlib.import_module(f"{pkg.__name__}.flows.cuda_level")
+        cfg = importlib.import_module(f"{pkg.__name__}.configs").get_humaniflow_cfg_defaults()
+        model = importlib.import_module(f"{pkg.__name__}.models").HumaniflowModel(
+            cfg.MODEL, generator=torch.Generator().manual_seed(0))
+        parts = [getattr(model, f"level_parts_{li}") for li in range(len(model.levels))]
+
+        @torch.inference_mode()  # K5 has no backward and refuses grad mode
+        def ar_pass():
+            for (z, ctx), idx in zip(inputs["k5"], parts):
+                level.flow_forward_level(model.flow, z, ctx, idx)
+
+        calls[k5] = ar_pass
+    calls[f"K7 rows={K7_ROWS} V=6890"] = lambda: lbs.lbs_skin_cm(*inputs["k7"])
     return {name: (cuda_ms(fn, iters), kernel_device_ms(fn, "", iters)) for name, fn in calls.items()
             if name.startswith(only)}
 
@@ -505,8 +540,8 @@ def time_moments_rows(iters: int = 20) -> dict:
 
 
 def compare_checkouts(parent_root: str, turns: str = "pccp", only: str = "") -> dict:
-    """K6, K4, K2's forward, K1 and K2's backward (those whose name starts
-    with `only`) of the parent checkout at `parent_root` and of this one, timed
+    """K6, K4, K2's forward, K1, K2's backward, K5 and K7 (those whose name
+    starts with `only`) of the parent checkout at `parent_root` and of this one, timed
     in turns on one card (p = parent, c = change; default parent, change,
     change, parent) on the same inputs; prints one JSON line per turn and
     returns {label: [results per turn]}."""
@@ -648,8 +683,8 @@ def main(argv=None) -> int:
     parser.add_argument("--protocol", choices=("ssp3d", "3dpw"), default=None)
     parser.add_argument("--train", action="store_true", help="profile one synthetic batch and one train step")
     parser.add_argument("--compare", metavar="PARENT_ROOT", default=None,
-                        help="time K6, K4, K2 (forward and backward kernel) and K1 of the checkout at PARENT_ROOT and "
-                             "of this one in turns, parent, change, change, parent")
+                        help="time K6, K4, K2 (forward and backward kernel), K1, K5 and K7 of the checkout at "
+                             "PARENT_ROOT and of this one in turns, parent, change, change, parent")
     parser.add_argument("--only", default="", help="with --compare: only the kernels whose name starts so")
     parser.add_argument("--plans", action="store_true",
                         help="time K2's forward through every row group at the paths' row counts, K4 through "

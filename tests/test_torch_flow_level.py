@@ -137,9 +137,11 @@ def test_level_params_rejects_widths_the_kernel_does_not_hold():
     with pytest.raises(ValueError, match="context"):
         cuda_level.level_params(ok, 16, cpu)
     prm = cuda_level.level_params(ok, 8, cpu)
-    assert prm.n_couplings == 2 and list(prm.perm[1]) == [1, 2, 0] and prm.act_rows == 64
-    # coupling weights padded to (8k outputs, 4k inputs): 9→12 inputs, 64, 32, 32, 62→64 outputs
-    assert prm.weight_floats == 64 * 12 + 64 + 32 * 64 + 32 + 32 * 32 + 32 + 64 * 32 + 64
+    assert prm.n_couplings == 2 and list(prm.perm[1]) == [1, 2, 0] and prm.max_tiles == 8
+    # each layer packed as mma fragments (k-steps × n-tiles × 64 floats) and its bias by column, the first
+    # layer also x0's column: 8 contexts in 2 k-steps, then 64, 32, 32 and 62→64 outputs
+    assert list(prm.k_steps[0][:4]) == [2, 8, 4, 4] and list(prm.n_tiles[0][:4]) == [8, 4, 4, 8]
+    assert prm.coupling_floats == (2 * 8 * 64 + 64 + 64) + (8 * 4 * 64 + 32) + (4 * 4 * 64 + 32) + (4 * 8 * 64 + 64)
 
 
 def test_autoregress_routes_each_level_through_the_wrapper(models, monkeypatch):

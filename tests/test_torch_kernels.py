@@ -244,7 +244,7 @@ def _level_inputs_cuda(p, rows, c, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 33, 3239])
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 3232, 3239])
 def test_flow_level_kernel_matches_plain_on_every_level(rows):
     _require_cuda()
     from humaniflow_torch.flows import cuda_level
@@ -260,6 +260,78 @@ def test_flow_level_kernel_matches_plain_on_every_level(rows):
             want = cuda_level.flow_forward_level_plain(model.flow, z, ctx, idx)
         assert cuda_level.LAUNCHES["flow_level"] == before + 1
         torch.testing.assert_close(got, want, rtol=0, atol=LEVEL_ATOL, msg=f"level {li}")
+
+
+@pytest.mark.cuda
+def test_flow_level_kernel_matches_plain_at_ragged_row_counts():
+    """Each level at row counts one below, at and one above multiples of the
+    16-row warp tile and of the 64-row block: blocks with idle warps and
+    warps with idle rows."""
+    _require_cuda()
+    from humaniflow_torch.flows import cuda_level
+
+    model = _flow_model()
+    for li, parts in enumerate(model.levels):
+        idx = getattr(model, f"level_parts_{li}")
+        p = len(parts)
+        for rows in sorted({m + d for m in (16, 48, 64, 80, 128, 192) for d in (-1, 0, 1)}):
+            z, ctx = _level_inputs_cuda(p, rows, 64, seed=rows)
+            with torch.inference_mode():
+                got = cuda_level.flow_forward_level(model.flow, z, ctx, idx)
+                torch.cuda.synchronize()
+                want = cuda_level.flow_forward_level_plain(model.flow, z, ctx, idx)
+            torch.testing.assert_close(got, want, rtol=0, atol=LEVEL_ATOL, msg=f"level {li}, rows {rows}")
+
+
+@pytest.mark.cuda
+def test_flow_level_kernel_matches_plain_at_wide_and_odd_widths():
+    """A flow of hidden widths 128 and 40 (the 16-n-tile register tile, an
+    n-tile count that is not a power of two) on 37 context features (read
+    one float at a time), 5 parts, ragged rows."""
+    _require_cuda()
+    from humaniflow_torch.flows import cuda_level
+    from humaniflow_torch.flows.factory import create_conditional_norm_flow
+
+    flow = create_conditional_norm_flow(event_dim=3, context_dim=37, num_transforms=2, num_parts=6,
+                                        transform_hidden_dims=(128, 40), radial_tanh_radius=1.5 * math.pi)
+    g = torch.Generator().manual_seed(4)
+    for m in flow.transforms:
+        if hasattr(m, "hypernet"):
+            m.hypernet.reset_parameters(g)
+    flow.cuda()
+    idx = torch.tensor([5, 0, 3, 1, 2], device="cuda")
+    for rows in (1, 50, 1001):
+        z, ctx = _level_inputs_cuda(len(idx), rows, 37, seed=rows)
+        with torch.inference_mode():
+            got = cuda_level.flow_forward_level(flow, z, ctx, idx)
+            torch.cuda.synchronize()
+            want = cuda_level.flow_forward_level_plain(flow, z, ctx, idx)
+        torch.testing.assert_close(got, want, rtol=0, atol=LEVEL_ATOL, msg=f"rows {rows}")
+
+
+@pytest.mark.cuda
+def test_flow_level_kernel_follows_an_in_place_load_state_dict():
+    """Two calls with new weights loaded in place between them (the same
+    storage, a new version): the second call matches the twin with the new
+    weights, not the pack of the old ones."""
+    _require_cuda()
+    from humaniflow_torch.configs import get_humaniflow_cfg_defaults
+    from humaniflow_torch.flows import cuda_level
+    from humaniflow_torch.models import HumaniflowModel
+
+    model = _flow_model()
+    other = HumaniflowModel(get_humaniflow_cfg_defaults().MODEL, generator=torch.Generator().manual_seed(1))
+    idx = model.level_parts_3
+    z, ctx = _level_inputs_cuda(len(idx), 500, 64, seed=3)
+    with torch.inference_mode():
+        first = cuda_level.flow_forward_level(model.flow, z, ctx, idx)
+    model.flow.load_state_dict(other.flow.state_dict())
+    with torch.inference_mode():
+        got = cuda_level.flow_forward_level(model.flow, z, ctx, idx)
+        torch.cuda.synchronize()
+        want = cuda_level.flow_forward_level_plain(model.flow, z, ctx, idx)
+    torch.testing.assert_close(got, want, rtol=0, atol=LEVEL_ATOL)
+    assert float((got - first).abs().max()) > 1e-3  # the new weights moved the outputs
 
 
 @pytest.mark.cuda
@@ -682,6 +754,22 @@ def test_lbs_skin_kernel_matches_plain(b):
     got = cuda_lbs.lbs_skin_cm(w, a12, posed)
     torch.cuda.synchronize()
     assert cuda_lbs.LAUNCHES["lbs_skin"] == before + 1
+    torch.testing.assert_close(got, cuda_lbs.lbs_skin_cm_plain(w, a12, posed), rtol=0, atol=LBS_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 37, 65])
+@pytest.mark.parametrize("v", [513, 6890, 6891])
+def test_lbs_skin_kernel_matches_plain_at_ragged_shapes(b, v):
+    """Rows that fill no 4-row chunk or 16-row block whole, and V that fills
+    no 512-vertex block whole, even (vertex pairs) and odd."""
+    _require_cuda()
+    g = torch.Generator("cuda").manual_seed(b + v)
+    w = torch.softmax(3.0 * torch.randn((v, 24), generator=g, device="cuda"), -1)
+    a12 = 0.5 * torch.randn((b, 24, 12), generator=g, device="cuda")
+    posed = torch.randn((b, 3, v), generator=g, device="cuda")
+    got = cuda_lbs.lbs_skin_cm(w, a12, posed)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got, cuda_lbs.lbs_skin_cm_plain(w, a12, posed), rtol=0, atol=LBS_ATOL)
 
 

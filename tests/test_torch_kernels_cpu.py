@@ -1,5 +1,6 @@
 """K2's restructured backward, K3's band plan, K6's cull, K2's forward plan,
-K4's tile plan and K1's row chunks on the CPU.
+K4's tile plan, K1's row chunks, K5's row plan, weight pack, plan cache and
+3xTF32 arithmetic, and K7's row and vertex tiling on the CPU.
 
 K2's backward is a per-vertex part, (dp, G12), computed by a kernel on the
 card and by its plain twin here, followed by float32 products over V.  The
@@ -13,9 +14,10 @@ plain versions of the kernel's per-face constants and test,
 render/cuda_tiled.py) is held against
 the per-pixel float32 formula of the exact scan on near-degenerate faces:
 it never skips a face that the formula finds inside a pixel centre of the
-sub-block; and on posed bodies it skips most (face, sub-block) pairs.  The
-kernels themselves are held against the twins on the card in
-tests/test_torch_kernels.py.
+sub-block; and on posed bodies it skips most (face, sub-block) pairs.  K5's
+pack is read back through the mma fragment layout and its 3xTF32 split is
+emulated from it against the twin.  The kernels themselves are held
+against the twins on the card in tests/test_torch_kernels.py.
 """
 
 import math
@@ -417,3 +419,226 @@ def test_k4_row_spans_never_drop_a_pixel_the_rounded_formula_finds_inside(img):
                 box_px += int(torch.where(rows_in, x_hi - x_lo + 1, 0).sum())
     assert checked > 10**8 and inside_total > 10**5
     assert 0 < span_px <= 0.5 * box_px
+
+
+# ---- K5 (flows/cuda_level.py): row plan, weight pack, plan cache, 3xTF32
+
+
+def _k5_flow(c_dim=64, hidden=(64, 32, 32), seed=0):
+    from humaniflow_torch.flows.factory import create_conditional_norm_flow
+
+    flow = create_conditional_norm_flow(event_dim=3, context_dim=c_dim, num_transforms=2, num_parts=23,
+                                        transform_hidden_dims=hidden, radial_tanh_radius=1.5 * math.pi)
+    g = torch.Generator().manual_seed(seed)
+    for m in flow.transforms:
+        if hasattr(m, "hypernet"):
+            m.hypernet.reset_parameters(g)
+    return flow
+
+
+def _k5_column_of_output(o, n_out, last):
+    """The packed accumulator column holding output feature o of a layer:
+    hidden layers in order; the last layer's w, h, d, l blocks at columns
+    0, 16, 32, 48, dimension j 8 columns further, d's 7 bins padded to 8."""
+    if not last:
+        return o
+    for first, bins, col in ((0, 8, 0), (16, 8, 16), (32, 7, 32), (46, 8, 48)):
+        if first <= o < first + 2 * bins:
+            return col + 8 * ((o - first) // bins) + (o - first) % bins
+    raise AssertionError(o)
+
+
+def _k5_logical_k(i, layer, c_dim, prev_col):
+    """The logical k (8·k-step + k) that input feature i takes in a layer:
+    the first layer's context feature 16q + 4t + 2h + s sits at k-step 2q +
+    h, k = t + 4s (a lane's float4); a later layer's input is the previous
+    accumulator's column 8·ks + 2t + s, at k-step ks, k = t + 4s."""
+    if layer == 0:
+        q, rem = divmod(i, 16)
+        t, h, s = rem // 4, rem % 4 // 2, rem % 2
+        return 8 * (2 * q + h) + t + 4 * s
+    col = prev_col(i)
+    ks, t, s = col // 8, col % 8 // 2, col % 2
+    return 8 * ks + t + 4 * s
+
+
+def _k5_decode_b(frag, nks, nnt):
+    """(P, 8·nks, 8·nnt) B matrices from mma B fragments [ks][n-tile pair]
+    [lane][4]: lane 4g + t holds B[t][g] and B[t + 4][g] of n-tile 2·pair,
+    then of n-tile 2·pair + 1 (the m16n8k8 .col B layout)."""
+    p = frag.shape[0]
+    f = frag.reshape(p, nks, nnt // 2, 32, 4)
+    b = torch.zeros((p, nks, 8, nnt, 8), dtype=frag.dtype)
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    for pair in range(nnt // 2):
+        for e in range(4):
+            b[:, :, t + 4 * (e % 2), 2 * pair + e // 2, g] = f[:, :, pair, :, e]
+    return b.reshape(p, 8 * nks, 8 * nnt)
+
+
+def _k5_layers(pack_c, prm, c):
+    """Per layer of coupling c: (B, bias by column, x0's column or None)."""
+    out = []
+    for li in range(prm.n_layers[c]):
+        off, nks, nnt = prm.layer_off[c][li], prm.k_steps[c][li], prm.n_tiles[c][li]
+        blk = pack_c[:, off:off + prm.layer_floats[c][li]]
+        nb = nks * nnt * 64
+        x0col = blk[:, nb + 8 * nnt:nb + 16 * nnt] if li == 0 else None
+        out.append((_k5_decode_b(blk[:, :nb], nks, nnt), blk[:, nb:nb + 8 * nnt], x0col))
+    return out
+
+
+@pytest.mark.parametrize("c_dim,hidden", [(64, (64, 32, 32)), (8, (40, 24)), (37, (128, 64))],
+                         ids=["default", "narrow", "wide"])
+def test_k5_pack_unpacks_to_the_hypernet(c_dim, hidden):
+    """level_pack, read back through the mma fragment layout and the
+    column and k orders the kernel uses (plain inverses written here), gives
+    every hypernet weight and bias of every part and coupling; every other
+    float of the pack is zero."""
+    from humaniflow_torch.flows import cuda_level
+
+    flow = _k5_flow(c_dim, hidden)
+    prm = cuda_level.level_params(flow, c_dim, torch.device("cpu"))
+    pack = cuda_level.level_pack(flow, c_dim)
+    blocks, _ = cuda_level._plan(flow)
+    assert pack.shape == (23, len(blocks), prm.coupling_floats)
+    assert prm.max_tiles == (16 if max(hidden) > 64 else 8)
+    for c, (_, coupling) in enumerate(blocks):
+        ws, bs = coupling.hypernet.weights, coupling.hypernet.biases
+        layers = _k5_layers(pack[:, c], prm, c)
+        used = 0
+        for li, ((bmat, bias, x0col), w, b) in enumerate(zip(layers, ws, bs)):
+            n_out, n_in = w.shape[1:]
+            last = li == len(ws) - 1
+            cols = [_k5_column_of_output(o, n_out, last) for o in range(n_out)]
+            ks = [_k5_logical_k(i, li, c_dim, lambda i: i) for i in range(n_in - (1 if li == 0 else 0))]
+            got = bmat[:, ks][:, :, cols].transpose(1, 2)
+            if li == 0:
+                got = torch.cat([got, x0col[:, cols, None]], -1)
+                used += int((x0col != 0).sum())
+            assert torch.equal(got, w.detach()), (c, li)
+            assert torch.equal(bias[:, cols], b.detach()), (c, li)
+            used += int((bmat != 0).sum()) + int((bias != 0).sum())
+        assert used == int((pack[:, c] != 0).sum())  # nothing else in the pack is non-zero
+
+
+def test_k5_plan_cache_repacks_after_an_in_place_load():
+    """The plan cache keys each hypernet tensor on its address, shape and
+    version: load_state_dict copies new weights into the same storage, and
+    the next call repacks them; a call with nothing changed reuses the
+    pack."""
+    from humaniflow_torch.flows import cuda_level
+
+    cpu = torch.device("cpu")
+    flow = _k5_flow(seed=1)
+    prm = cuda_level._cached_plan(flow, 64, cpu)
+    _, _, pack = cuda_level._PLANS[flow][(64, cpu)]
+    assert prm.packed == pack.data_ptr() and cuda_level._cached_plan(flow, 64, cpu) is prm
+    ptrs = [t.data_ptr() for t in flow.parameters()]
+    flow.load_state_dict(_k5_flow(seed=2).state_dict())
+    assert [t.data_ptr() for t in flow.parameters()] == ptrs  # in place: the address alone would not see it
+    prm2 = cuda_level._cached_plan(flow, 64, cpu)
+    _, _, pack2 = cuda_level._PLANS[flow][(64, cpu)]
+    assert prm2 is not prm and prm2.packed == pack2.data_ptr()
+    assert torch.equal(pack2, cuda_level.level_pack(flow, 64)) and not torch.equal(pack2, pack)
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10 explicit mantissa bits), nearest, ties away
+    from zero: cvt.rna.tf32.f32."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """float32 cut to TF32 toward zero: a float32 operand as the tensor core
+    reads it at worst (its lower 13 bits dropped)."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, terms):
+    """a (..., P, K) @ b (P, K, N) on TF32 tensor cores, float32 sums: a =
+    a_hi + a_lo, b = b_hi + b_lo with hi rounded to TF32 and lo = a - hi,
+    read truncated to TF32.  terms 3: a_lo b_hi + a_hi b_lo + a_hi b_hi, as
+    K5 computes it; 2: without a_lo b_hi; 1: a_hi b_hi alone (single-pass
+    TF32)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    mm = lambda x, y: torch.einsum("...pk,pkn->...pn", x, y)  # noqa: E731
+    out = mm(a_hi, b_hi)
+    if terms >= 2:
+        out = mm(a_hi, b_lo) + out
+    if terms >= 3:
+        out = mm(a_lo, b_hi) + out
+    return out
+
+
+def _k5_emulate(flow, z, ctx, parts, terms=3):
+    """K5's arithmetic in plain torch: the MLP from the pack in TF32 with
+    `terms` terms of the split (_mm_tf32; K5 takes 3) and the kernel's k
+    and column orders, x0 by a float32 product, then the port's splines and
+    radial tanh on the packed parameter columns."""
+    from humaniflow_torch.flows import cuda_level
+    from humaniflow_torch.flows.spline import monotonic_rational_spline_forward
+
+    c_dim = ctx.shape[-1]
+    prm = cuda_level.level_params(flow, c_dim, torch.device("cpu"))
+    pack = cuda_level.level_pack(flow, c_dim)[parts]
+    blocks, radius = cuda_level._plan(flow)
+    x = z
+    for c, (perm, coupling) in enumerate(blocks):
+        x = x[..., list(perm)]
+        layers = _k5_layers(pack[:, c], prm, c)
+        for li, (bmat, bias, x0col) in enumerate(layers):
+            if li == 0:
+                feat = torch.tensor([16 * (ks // 2) + 4 * (k % 4) + 2 * (ks % 2) + k // 4
+                                     for ks in range(bmat.shape[1] // 8) for k in range(8)])
+                a = torch.where(feat < c_dim, ctx[..., feat.clamp(max=c_dim - 1)], 0.0)
+                h = bias + _mm_tf32(a, bmat, terms) + x[..., :1] * x0col
+            else:
+                cols = torch.tensor([8 * ks + 2 * (k % 4) + k // 4 for ks in range(bmat.shape[1] // 8)
+                                     for k in range(8)])
+                h = bias + _mm_tf32(torch.relu(h)[..., cols], bmat, terms)
+        par = h.reshape(h.shape[:-1] + (4, 2, 8))  # (kind, dimension, bin) by packed column
+        y = monotonic_rational_spline_forward(x[..., 1:], par[..., 0, :, :], par[..., 1, :, :], par[..., 2, :, :7],
+                                              par[..., 3, :, :], bound=coupling.bound)
+        x = torch.cat([x[..., :1], y], -1)
+    return flow.transforms[-1](x) if radius is not None else x
+
+
+@torch.no_grad()
+def test_k5_3xtf32_emulation_matches_the_twin_on_every_level():
+    """K5's MLP in 3xTF32, emulated from the pack with the kernel's k and
+    column orders, against the twin (the eager float32 flow) within K5's
+    2e-5 on all 8 levels of the default model at its seeded weights: its
+    own contexts and noise from a forward (hooked on the flow), and
+    0.6·N(0, 1), zero and ±10 base samples on the same contexts.  The
+    limit would catch less: the split without a_lo·b_hi, and single-pass
+    TF32, each miss 2e-5 on some level."""
+    from humaniflow_torch.configs import get_humaniflow_cfg_defaults
+    from humaniflow_torch.models import HumaniflowModel
+
+    model = HumaniflowModel(get_humaniflow_cfg_defaults().MODEL, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    captured = []
+    handle = model.flow.register_forward_hook(lambda m, args, out: captured.append(args))
+    try:
+        proxy = torch.rand((3, 64, 64, 18), generator=torch.Generator().manual_seed(1))
+        model.apply(proxy, generator=torch.Generator().manual_seed(2), num_samples=20)
+    finally:
+        handle.remove()
+    assert len(captured) == len(model.levels)
+    rng = np.random.default_rng(3)
+    worst = {terms: [] for terms in (3, 2, 1)}  # per level
+    for z_model, ctx, parts in captured:
+        z_model, ctx = z_model.reshape(-1, *z_model.shape[-2:]), ctx.reshape(-1, *ctx.shape[-2:])
+        normal = torch.from_numpy((0.6 * rng.normal(size=z_model.shape)).astype(np.float32))
+        tails = torch.full_like(normal, 10.0)
+        tails[::2] = -10.0
+        cases = [(z, model.flow(z, ctx, parts)) for z in (z_model, normal, torch.zeros_like(normal), tails)]
+        for terms, errs in worst.items():
+            errs.append(max(float((_k5_emulate(model.flow, z, ctx, parts, terms) - want).abs().max())
+                            for z, want in cases))
+        assert worst[3][-1] <= 2e-5, (tuple(parts.tolist()), worst[3][-1])
+    assert max(worst[3]) > 0  # the emulation rounds: it is not the twin itself
+    assert max(worst[2]) > 2e-5 and max(worst[1]) > 2e-5, worst
