@@ -81,10 +81,27 @@ Phases, each of which raises on failure (exit code != 0):
    against the exact-scan renderer (masks and depth on every pixel; colours
    may differ only where faces tie), timed, and K6 timed in the figures'
    own launches (CUDA events around each call, beside each launch's
-   bound).
+   bound);
+15. the non-default flows and the two CLIs of training and evaluation:
+   (a) three configurations of the JAX factory's menu (affine coupling with
+   the conditional linear PLU and flow BatchNorm, the masked spline with the
+   linear PLU, the masked affine with permutations), each with
+   HFT_FUSED_LEVEL=1 (K5 refuses them: zero launches): distribution
+   inference at B=32, N=100 (K1, K2) and 3 train steps at B=72, 256²
+   through the training renderer (K4, K2, K2's backward; finite losses,
+   none skipped, the BatchNorm running statistics moved), timed beside
+   phase 11's default flow, and one train step with flow BatchNorm GPU
+   against CPU; (b) the train CLI (cli/run_train.py, --cull) on files
+   written at run time (SMPL .npz files from the port's converter, 144
+   train and 72 val poses, textures, JPEG backgrounds), 2 epochs and a
+   resume for a third (checkpoints, log.pkl, finite losses), with the host's
+   sample_batch and texture upload timed; (c) the evaluate CLI
+   (cli/run_evaluate.py) on fabricated 3DPW (N=10) and SSP-3D (N=100)
+   directories of 32 frames with the train CLI's last checkpoint (finite
+   per-frame metrics).
 
 Phases 1-7 and 11-14 run with the fused level off.  Each path of phases 3, 4,
-6, 7, 9, 10, 11 and 14 is driven with the kernel launch counters
+6, 7, 9, 10, 11, 14 and 15 is driven with the kernel launch counters
 set to 0 just before it and read just after; launches made to compare a
 kernel with its twin, or to time it, are not counted.  Last, torch.profiler
 counts the kernel launches of one call of K2's backward and takes the
@@ -1137,9 +1154,15 @@ def check_train_step_against_cpu(cfg):
         rel = float((p.grad.cpu() - q.grad).abs().max() / q.grad.abs().max().clamp(min=1e-30))
         if rel > worst_grad:
             worst_grad, worst_name = rel, name
-    print(f"train step on GPU vs CPU (B={b}, {img}², {nj} joint samples): loss terms within {worst_loss:.3e} "
-          f"relative, gradients within {worst_grad:.3e} of each tensor's largest ({worst_name})")
-    if not (worst_loss <= LOSS_RTOL and worst_grad <= GRAD_RTOL):
+    # flow BatchNorm running statistics, after Adam's step and their update
+    stats = [float((p.detach().cpu() - q.detach()).abs().max() / q.detach().abs().max())
+             for (name, p), q in zip(gpu.named_parameters(), cpu.parameters()) if name.endswith(("moving_mean", "moving_var"))]
+    nf = small.MODEL.NORM_FLOW
+    print(f"train step on GPU vs CPU ({nf.TRANSFORM_TYPE}/{nf.PERMUTE_TYPE}, BatchNorm {nf.BATCH_NORM}; B={b}, "
+          f"{img}², {nj} joint samples): loss terms within {worst_loss:.3e} relative, gradients within "
+          f"{worst_grad:.3e} of each tensor's largest ({worst_name})"
+          + (f", {len(stats)} running-statistics tensors within {max(stats):.3e}" if stats else ""))
+    if not (worst_loss <= LOSS_RTOL and worst_grad <= GRAD_RTOL and all(x <= BN_STATS_RTOL for x in stats)):
         raise AssertionError("the train step on the card disagrees with the CPU")
 
 
@@ -1670,6 +1693,296 @@ def profile_optimise(model, smpl, pred):
           f"{res[5][1]['top_kernels_ms'][:4]}")
 
 
+MENU = (  # phase 15a: non-default flows of the JAX factory's menu (transform, permute, flow BatchNorm)
+    ("affine_coupling", "conditional_linear_plu", True),
+    ("spline_masked", "linear_plu", False),
+    ("affine_masked", "permute", False),
+)
+MENU_STEPS = 3  # train steps per menu configuration
+BN_STATS_RTOL = 1e-5  # GPU vs CPU train step: flow BatchNorm running statistics after the step
+TRAIN_POSES, VAL_POSES = 144, 72  # phase 15b: two train and one val batch an epoch at B=72
+EVAL_FRAMES = 32  # phase 15c: one batch of each protocol
+
+
+def _menu_cfg(cfg, transform_type, permute_type, batch_norm):
+    import dataclasses
+
+    nf = dataclasses.replace(cfg.MODEL.NORM_FLOW, TRANSFORM_TYPE=transform_type, PERMUTE_TYPE=permute_type,
+                             BATCH_NORM=batch_norm)
+    return dataclasses.replace(cfg, MODEL=dataclasses.replace(cfg.MODEL, NORM_FLOW=nf))
+
+
+def flow_menu(smpl, cfg, proxy, default_timings):
+    """Phase 15a: each menu configuration at full width, with
+    HFT_FUSED_LEVEL=1 (K5 refuses these flows, so they run eager):
+    distribution inference at B=32, N=100 and MENU_STEPS train steps at
+    B=72, 256² through the training renderer; then one train step GPU
+    against CPU with flow BatchNorm.  Returns the counted launches by path."""
+    import math
+
+    import torch
+
+    from humaniflow_torch.data.augmentation import Draws
+    from humaniflow_torch.flows import cuda_level
+    from humaniflow_torch.models import HumaniflowModel, smpl_forward, smpl_vertex_moments
+    from humaniflow_torch.pipelines import make_optimizer, make_synth_data_fn, make_train_step
+    from humaniflow_torch.utils.profiling import wall_ms
+
+    renderer = _training_renderer()
+    gen = torch.Generator("cuda").manual_seed(71)
+    inputs = [torch.rand(shape, generator=gen, device="cuda") for shape in
+              ((TRAIN_B, 72), (TRAIN_B, 1200, 800, 3), (TRAIN_B, IMG, IMG, 3))]
+    inputs[0] = (inputs[0] - 0.5) * 0.6
+    default_ms = default_timings["synth_ms"] + default_timings["step_ms"]
+    launches = {}
+    _set_fused(True)
+    for variant in MENU:
+        name = "/".join(str(v) for v in variant[:2]) + (" + BatchNorm" if variant[2] else "")
+        vcfg = _menu_cfg(cfg, *variant)
+        model = HumaniflowModel(vcfg.MODEL, generator=torch.Generator().manual_seed(72))
+        if cuda_level.supports_flow(model.flow):
+            raise AssertionError(f"{name}: K5 accepts a flow it does not hold")
+
+        _zero_counts()
+        with torch.inference_mode():
+            out = model.apply(proxy, generator=torch.Generator("cuda").manual_seed(73), num_samples=N,
+                              use_shape_mode_for_samples=True)
+            mom = smpl_vertex_moments(
+                smpl, out["shape_samples"].reshape(B * N, -1), out["pose_rotmats_samples"].reshape(B * N, 23, 3, 3),
+                out["glob_rotmat"][:, None].expand(B, N, 3, 3).reshape(B * N, 3, 3), num_groups=B)
+            verts = smpl_forward(smpl, out["shape_mode"], out["pose_rotmats_point_est"], out["glob_rotmat"])["vertices"]
+        c = launches[f"distribution inference, {name}"] = _read_counts()
+        if c["smpl_moments"] == 0 or c["smpl_verts"] == 0 or c["flow_level"] != 0:
+            raise AssertionError(f"{name}: distribution inference launched {c}")
+        var = torch.clamp(mom[:, 1] / N - (mom[:, 0] / N) ** 2, min=0.0).sum(1)
+        if not (bool(torch.isfinite(var).all()) and bool(torch.isfinite(verts).all()) and float(var.max()) > 0):
+            raise AssertionError(f"{name}: non-finite or zero vertex variance")
+
+        opt = make_optimizer(model, vcfg)
+        step = make_train_step(model, smpl, vcfg.LOSS, opt, img_wh=IMG)
+        synth = make_synth_data_fn(vcfg, smpl, renderer)
+        draws = Draws(gen)
+        stats = {k: p.detach().clone() for k, p in model.named_parameters() if k.endswith(("moving_mean", "moving_var"))}
+        _zero_counts()
+        losses = []
+        for _ in range(MENU_STEPS):
+            batch = synth(draws, *inputs)
+            batch.pop("rgb_in"), batch.pop("binning_overflow")
+            m = step(batch, generator=gen)
+            losses.append((float(m["total"]), float(m["nan_skipped"])))
+        c = launches[f"train steps x{MENU_STEPS} (synth + step), {name}"] = _read_counts()
+        if c["raster"] == 0 or c["smpl_verts"] == 0 or c["smpl_verts_backward"] == 0 or c["flow_level"] != 0:
+            raise AssertionError(f"{name}: train steps launched {c}")
+        if not all(math.isfinite(a) and b == 0.0 for a, b in losses):
+            raise AssertionError(f"{name}: a train step gave a non-finite loss or was skipped: {losses}")
+        moved = {k: float((p.detach() - stats[k]).abs().max()) for k, p in model.named_parameters() if k in stats}
+        if variant[2] and not (moved and min(moved.values()) > 0):
+            raise AssertionError(f"{name}: the flow BatchNorm running statistics did not move: {moved}")
+        synth_ms = wall_ms(lambda: synth(draws, *inputs), 2)
+        step_ms = wall_ms(lambda: step(batch, generator=gen), 2)
+        print(f"flow menu {name}: distribution inference B={B} N={N} variance max {float(var.max()):.3e}; "
+              f"train B={TRAIN_B} {IMG}²: losses {', '.join(f'{a:.2f}' for a, _ in losses)}, synth {synth_ms:.2f} ms, "
+              f"step {step_ms:.2f} ms, {TRAIN_B * 1e3 / (synth_ms + step_ms):.1f} img/s (default flow, phase 11: "
+              f"{default_timings['step_ms']:.2f} ms a step, {TRAIN_B * 1e3 / default_ms:.1f} img/s)"
+              + (f"; BatchNorm statistics moved by {min(moved.values()):.3e}-{max(moved.values()):.3e}"
+                 if variant[2] else ""))
+        del model, opt, step
+    _set_fused(False)
+    check_train_step_against_cpu(_menu_cfg(cfg, *MENU[0]))
+    return launches
+
+
+def _write_smpl_npz(path, seed):
+    """An SMPL .npz written by the port's converter from a .pkl laid out as
+    the released files are (posedirs (V, 3, 207), a scipy-sparse
+    J_regressor) holding synthetic_smpl(6890, seed)'s arrays."""
+    import pickle
+
+    import numpy as np
+    import scipy.sparse
+
+    from humaniflow_torch.models import synthetic_smpl
+    from humaniflow_torch.models.smpl import convert_smpl_pkl
+
+    s = synthetic_smpl(num_verts=V, seed=seed, device="cpu")
+    with open(path + ".pkl", "wb") as f:
+        pickle.dump({"v_template": s.v_template.numpy().astype(np.float64),
+                     "shapedirs": s.shapedirs.numpy().astype(np.float64),
+                     "posedirs": s.posedirs.numpy().T.reshape(V, 3, -1).astype(np.float64),
+                     "J_regressor": scipy.sparse.csc_matrix(s.j_regressor.numpy().astype(np.float64)),
+                     "weights": s.lbs_weights.numpy().astype(np.float64), "f": s.faces.numpy().astype(np.uint32)},
+                    f, protocol=2)
+    convert_smpl_pkl(path + ".pkl", path)
+
+
+def _write_training_files(root):
+    """Poses, textures and JPEG backgrounds (OpenCV) of the train and val
+    splits; points configs/paths.py at them."""
+    import cv2
+    import numpy as np
+
+    from humaniflow_torch.configs import paths
+
+    rng = np.random.default_rng(81)
+    prefixes = ("h36m", "up3d", "3dpw", "amass")
+    for split, n in (("TRAIN", TRAIN_POSES), ("VAL", VAL_POSES)):
+        d = os.path.join(root, split.lower())
+        os.makedirs(os.path.join(d, "backgrounds"))
+        np.savez(os.path.join(d, "poses.npz"), fnames=np.array([f"{prefixes[i % 4]}_{i:05d}" for i in range(n)]),
+                 poses=rng.normal(scale=0.3, size=(n, 72)).astype(np.float32))
+        np.savez(os.path.join(d, "textures.npz"), grey=rng.integers(0, 256, (2, 1200, 800, 3), dtype=np.uint8),
+                 nongrey=rng.integers(0, 256, (4, 1200, 800, 3), dtype=np.uint8))
+        for i in range(16):
+            h, w = 240 + 16 * i, 320 - 8 * i
+            img = rng.integers(0, 256, (h // 8, w // 8, 3), dtype=np.uint8)
+            img = cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)
+            cv2.imwrite(os.path.join(d, "backgrounds", f"bg_{i:03d}.jpg"), img)
+        setattr(paths, f"{split}_POSES_PATH", os.path.join(d, "poses.npz"))
+        setattr(paths, f"{split}_TEXTURES_PATH", os.path.join(d, "textures.npz"))
+        setattr(paths, f"{split}_BACKGROUNDS_PATH", os.path.join(d, "backgrounds"))
+
+
+def _write_eval_sets(root):
+    """A 3DPW and an SSP-3D directory of EVAL_FRAMES frames each, as the
+    releases lay them out (PNG frames written with OpenCV); points
+    configs/paths.py at them."""
+    import cv2
+    import numpy as np
+
+    from humaniflow_torch.configs import paths
+
+    rng = np.random.default_rng(82)
+    n, orig = EVAL_FRAMES, 320
+    pw3d = os.path.join(root, "3dpw")
+    os.makedirs(os.path.join(pw3d, "cropped_frames"))
+    ssp3d = os.path.join(root, "ssp3d")
+    for sub in ("images", "silhouettes"):
+        os.makedirs(os.path.join(ssp3d, sub))
+    for i in range(n):
+        img = cv2.resize(rng.integers(0, 256, (orig // 8, orig // 8, 3), dtype=np.uint8), (orig, orig))
+        cv2.imwrite(os.path.join(pw3d, "cropped_frames", f"f{i:03d}.png"), img)
+        cv2.imwrite(os.path.join(ssp3d, "images", f"s{i:03d}.png"), img)
+        sil = np.zeros((orig, orig), np.uint8)
+        sil[60 + i:280, 100:220 - i] = 255
+        cv2.imwrite(os.path.join(ssp3d, "silhouettes", f"s{i:03d}.png"), sil)
+    kp = rng.uniform(20, orig - 20, size=(n, 17, 3)).astype(np.float32)
+    kp[:, :, 2] = rng.uniform(0.5, 1.0, size=(n, 17))
+    np.save(os.path.join(pw3d, "hrnet_results_centred.npy"), kp)
+    np.savez(os.path.join(pw3d, "3dpw_test.npz"), imgname=np.array([f"f{i:03d}.png" for i in range(n)]),
+             pose=rng.normal(scale=0.3, size=(n, 72)).astype(np.float32),
+             shape=rng.normal(scale=0.5, size=(n, 10)).astype(np.float32), gender=np.array(["m", "f"] * (n // 2)),
+             joints2D_coco=kp)
+    np.savez(os.path.join(ssp3d, "labels.npz"), fnames=np.array([f"s{i:03d}.png" for i in range(n)]),
+             shapes=rng.normal(scale=0.5, size=(n, 10)).astype(np.float32),
+             poses=rng.normal(scale=0.3, size=(n, 72)).astype(np.float32), joints2D=kp,
+             bbox_centres=np.full((n, 2), orig / 2, np.float32), bbox_whs=np.full((n,), orig * 0.8, np.float32),
+             genders=np.array(["m", "f"] * (n // 2)))
+    paths.PW3D_PATH, paths.SSP3D_PATH = pw3d, ssp3d
+
+
+def train_and_evaluate_clis(default_timings):
+    """Phase 15b-c: the train CLI on the card (two epochs, then a resume for
+    a third) on files written at run time, with the host's share timed; then
+    the evaluate CLI on both protocols with the checkpoint it wrote.
+    Returns the counted launches by path."""
+    import math
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from humaniflow_torch.cli import run_evaluate, run_train
+    from humaniflow_torch.configs import paths
+    from humaniflow_torch.data import native_loader
+    from humaniflow_torch.data.datasets import OnTheFlySMPLTrainDataset
+
+    launches = {}
+    saved = dict(vars(paths))
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for gender, seed in (("NEUTRAL", 0), ("MALE", 1), ("FEMALE", 2)):
+                npz = os.path.join(root, f"SMPL_{gender}.npz")
+                _write_smpl_npz(npz, seed)
+                setattr(paths, f"SMPL_{gender}", npz)
+            _write_training_files(root)
+            if native_loader.native_available():
+                print("training backgrounds decoded by the native loader")
+            else:
+                why = native_loader.build_error().splitlines()
+                print("training backgrounds decoded by OpenCV (the native loader: "
+                      + next((line for line in why if "error:" in line), why[-1]).strip() + ")")
+
+            data = OnTheFlySMPLTrainDataset(paths.TRAIN_POSES_PATH, paths.TRAIN_TEXTURES_PATH,
+                                            paths.TRAIN_BACKGROUNDS_PATH, img_wh=IMG)
+            idx = np.arange(TRAIN_B)
+            data.sample_batch(idx)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                host = data.sample_batch(idx)
+            sample_ms = 1e3 * (time.perf_counter() - t0) / 3
+            t0 = time.perf_counter()
+            for _ in range(3):
+                torch.as_tensor(host["texture"], device="cuda")
+            torch.cuda.synchronize()
+            upload_ms = 1e3 * (time.perf_counter() - t0) / 3
+            backgrounds = [data.backgrounds_paths[i % len(data.backgrounds_paths)] for i in range(TRAIN_B)]
+            t0 = time.perf_counter()
+            for _ in range(3):
+                native_loader.decode_jpeg_batch(backgrounds, IMG)
+            decode_ms = 1e3 * (time.perf_counter() - t0) / 3
+            nbytes = sum(a.nbytes for a in host.values())
+            print(f"host data path B={TRAIN_B}: sample_batch {sample_ms:.1f} ms ({nbytes / 1e6:.0f} MB: textures "
+                  f"{host['texture'].nbytes / 1e6:.0f} MB float32), of which the background decode {decode_ms:.1f} ms; "
+                  f"texture upload {upload_ms:.1f} ms; on the card (phase 11) synth {default_timings['synth_ms']:.2f} "
+                  f"ms, step {default_timings['step_ms']:.2f} ms")
+
+            exp = os.path.join(root, "experiment")
+            wall = {}
+            for run, argv in (("2 epochs", ["-O", "TRAIN.NUM_EPOCHS", "2", "TRAIN.EPOCHS_PER_SAVE", "1"]),
+                              ("resume, epoch 3", ["-R", "1", "-O", "TRAIN.NUM_EPOCHS", "3"])):
+                _zero_counts()
+                t0 = time.perf_counter()
+                run_train.main(["-E", exp, "--cull", *argv])
+                wall[run] = time.perf_counter() - t0
+                c = launches[f"train CLI, {run}"] = _read_counts()
+                if c["raster"] == 0 or c["smpl_verts"] == 0 or c["smpl_verts_backward"] == 0:
+                    raise AssertionError(f"train CLI ({run}) did not launch K4, K2 and K2's backward: {c}")
+            with open(os.path.join(exp, "log.pkl"), "rb") as f:
+                history = pickle.load(f)
+            ckpts = [os.path.join(exp, f"epoch_{e:06d}.pt") for e in range(3)]
+            if not all(os.path.exists(p) for p in ckpts) or len(history["train_losses"]) != 3:
+                raise AssertionError(f"train CLI wrote {sorted(os.listdir(exp))}, {len(history['train_losses'])} epochs")
+            if not all(math.isfinite(x) for k in ("train_losses", "val_losses", "val_PVE-SC") for x in history[k]):
+                raise AssertionError(f"train CLI recorded a non-finite loss or metric: {history}")
+            steps = {"2 epochs": 2 * 3, "resume, epoch 3": 3}
+            print(f"train CLI B={TRAIN_B} {IMG}², {TRAIN_POSES} train / {VAL_POSES} val poses: train losses "
+                  f"{', '.join(f'{x:.2f}' for x in history['train_losses'])}; val PVE-SC "
+                  f"{', '.join(f'{x:.4f}' for x in history['val_PVE-SC'])}; "
+                  + "; ".join(f"{run} {s:.1f} s wall ({1e3 * s / steps[run]:.0f} ms a batch with set-up)"
+                              for run, s in wall.items()))
+
+            _write_eval_sets(root)
+            for protocol, n in (("3dpw", 10), ("ssp3d", N)):
+                out_dir = os.path.join(root, f"eval_{protocol}")
+                _zero_counts()
+                final = run_evaluate.main(["-D", protocol, "-C", ckpts[-1], "-B", str(B), "-N", str(n), "-S", out_dir])
+                c = launches[f"evaluate CLI, {protocol}"] = _read_counts()
+                if c["smpl_verts"] == 0 or (protocol == "ssp3d" and c["coverage"] == 0):
+                    raise AssertionError(f"evaluate CLI ({protocol}) launched {c}")
+                frames = {f: np.load(os.path.join(out_dir, f)) for f in os.listdir(out_dir)
+                          if f.endswith("_per_frame.npy") and f != "fname_per_frame.npy"}
+                bad = [f for f, a in frames.items() if a.shape[0] != EVAL_FRAMES or not np.isfinite(a).all()]
+                if bad or not frames or not all(math.isfinite(v) for v in final.values()):
+                    raise AssertionError(f"evaluate CLI ({protocol}): bad per-frame files {bad} or metrics {final}")
+                print(f"evaluate CLI {protocol} B={B} N={n}: {len(frames)} per-frame metric files of {EVAL_FRAMES} "
+                      f"frames, finite")
+    finally:
+        for k, v in saved.items():
+            setattr(paths, k, v)
+    return launches
+
+
 def main() -> int:
     """Run the phases with the fused-level switch set as each needs it, and
     restore the caller's setting afterwards."""
@@ -1926,7 +2239,7 @@ def _main() -> int:
     check_smpl_verts_plans(smpl, records["smpl_verts"])
     records["smpl_verts_backward"] = check_smpl_backward(smpl)
     check_train_step_against_cpu(cfg)
-    train_launches, _ = train_full_width(smpl, cfg)
+    train_launches, train_timings = train_full_width(smpl, cfg)
     path_launches.update(train_launches)
 
     # ---- phases 12-14: K6, K7, and predict → optimise → visualise
@@ -1938,6 +2251,10 @@ def _main() -> int:
     records["tiled_raster"].update(figure_launches=[{"meshes": m, "ms": ms, "bound_ms": bd} for m, ms, bd in fig_k6],
                                    figure_ms=sum(ms for _, ms, _ in fig_k6),
                                    figure_bound_ms=sum(bd for _, _, bd in fig_k6))
+
+    # ---- phase 15: the flow menu, then the train and evaluate CLIs
+    path_launches.update(flow_menu(smpl, cfg, proxy, train_timings))
+    path_launches.update(train_and_evaluate_clis(train_timings))
     print(f"launches by path: {path_launches}")
 
     # ---- profiler measurements, last: a profiler session leaves the host

@@ -1,11 +1,11 @@
-"""SSP-3D and 3DPW evaluation datasets, the batch iterator and the
-optimise-data loader.
+"""The synthetic-training sampler, the SSP-3D and 3DPW evaluation
+datasets, the batch iterator and the optimise-data loader.
 
-The counterpart of the evaluation part of `humaniflow_tpu/data/datasets.py`
-and of its `load_opt_initialise_data_from_pred_output`: host-side numpy code
-(file IO, decode, crop) emitting uint8 images and keypoints; the heatmaps
-are built on the device by the eval step.  The training dataset waits for
-the training files.
+The counterpart of `humaniflow_tpu/data/datasets.py`: host-side numpy code
+(file IO, decode, crop).  The training sampler yields poses, textures and
+backgrounds that the train loop renders on the device; the evaluation
+datasets emit uint8 images and keypoints, whose heatmaps the eval step
+builds on the device.
 """
 
 import os
@@ -19,6 +19,81 @@ except Exception:  # pragma: no cover
     cv2 = None
 
 from ..configs.defaults import HumaniflowConfig
+from .native_loader import decode_jpeg_batch
+
+
+class OnTheFlySMPLTrainDataset:
+    """Synthetic-training pose, texture and background sampler (reference
+    on_the_fly_smpl_train_dataset.py:8-96): raw materials only, rendered on
+    the device by the train loop.  Draws from np.random.default_rng(seed) in
+    the JAX package's order (per item the texture coin and index, then the
+    background indices; per epoch the permutation first), so that both
+    packages give the same batches from the same seed."""
+
+    def __init__(
+        self,
+        poses_path: str,
+        textures_path: str,
+        backgrounds_dir_path: str,
+        params_from: str = "all",
+        grey_tex_prob: float = 0.05,
+        img_wh: int = 256,
+        seed: int = 0,
+    ):
+        assert params_from in ("all", "h36m", "up3d", "3dpw", "amass", "not_amass")
+        data = np.load(poses_path)
+        fnames = list(data["fnames"])
+        poses = data["poses"]
+        if params_from != "all":
+            def is_not_amass(f):
+                f = str(f)
+                return f.startswith("h36m") or f.startswith("up3d") or f.startswith("3dpw")
+
+            if params_from == "not_amass":
+                keep = [i for i, f in enumerate(fnames) if is_not_amass(f)]
+            elif params_from == "amass":
+                keep = [i for i, f in enumerate(fnames) if not is_not_amass(f)]
+            else:
+                keep = [i for i, f in enumerate(fnames) if str(f).startswith(params_from)]
+            fnames = [fnames[i] for i in keep]
+            poses = poses[keep]
+        self.fnames = fnames
+        self.poses = np.asarray(poses, np.float32)
+
+        textures = np.load(textures_path)
+        self.grey_textures = textures["grey"]
+        self.nongrey_textures = textures["nongrey"]
+        self.grey_tex_prob = grey_tex_prob
+
+        self.backgrounds_paths = sorted(
+            os.path.join(backgrounds_dir_path, f) for f in os.listdir(backgrounds_dir_path) if f.endswith(".jpg")
+        )
+        self.img_wh = img_wh
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.poses)
+
+    def sample_batch(self, indices) -> dict:
+        """{pose (B, 72), texture (B, 1200, 800, 3), background (B, wh, wh,
+        3)}, float32 NHWC in [0, 1]."""
+        b = len(indices)
+        poses = self.poses[indices]
+        textures = np.empty((b, 1200, 800, 3), np.float32)
+        for i in range(b):
+            if self.rng.random() < self.grey_tex_prob:
+                tex = self.grey_textures[self.rng.integers(len(self.grey_textures))]
+            else:
+                tex = self.nongrey_textures[self.rng.integers(len(self.nongrey_textures))]
+            textures[i] = tex / 255.0
+        paths = [self.backgrounds_paths[self.rng.integers(len(self.backgrounds_paths))] for _ in range(b)]
+        return {"pose": poses, "texture": textures, "background": decode_jpeg_batch(paths, self.img_wh)}
+
+    def epoch_batches(self, batch_size: int, shuffle: bool = True, drop_last: bool = True):
+        order = self.rng.permutation(len(self)) if shuffle else np.arange(len(self))
+        end = (len(order) // batch_size) * batch_size if drop_last else len(order)
+        for start in range(0, end, batch_size):
+            yield self.sample_batch(order[start:start + batch_size])
 
 
 def _crop_rgb_np(image, bbox_centre, bbox_wh, out_wh, scale_factor):

@@ -2,7 +2,9 @@
 
 The PyTorch counterpart of `humaniflow_tpu/flows/dense_nn.py` (pyro's
 `ConditionalDenseNN`): a ReLU MLP over concat([context, x]), context first,
-whose last layer is split into the requested param_dims.  Each of the
+whose last layer is split into the requested param_dims.  With input_dim 0
+it reads the context alone (pyro's `DenseNN`), as the conditional linear
+PLU's hypernet does.  Each of the
 `num_parts` body parts has its own weights, stacked on a leading axis, so
 one batched matmul evaluates every part of a kinematic depth level.
 """
@@ -43,12 +45,14 @@ class DenseNN(nn.Module):
             b.data.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x, context, parts):
-        """:param x: (..., P, input_dim).
+        """:param x: (..., P, input_dim), or None for a context-only net.
         :param context: (..., P, context_dim).
         :param parts: LongTensor (P,) of the part indices on the P axis.
         :return: tuple of (..., P, d) per param_dims."""
-        context = context.expand(x.shape[:-1] + context.shape[-1:])
-        h = torch.cat([context, x], dim=-1)
+        if x is None:
+            h = context
+        else:
+            h = torch.cat([context.expand(x.shape[:-1] + context.shape[-1:]), x], dim=-1)
         n_layers = len(self.weights)
         for i in range(n_layers):
             w = self.weights[i][parts]  # (P, out, in)

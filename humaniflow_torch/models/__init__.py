@@ -4,6 +4,7 @@ from .humaniflow import HumaniflowModel
 from .resnet import resnet18, resnet50
 from .smpl import (
     SMPLModel,
+    convert_smpl_pkl,
     load_smpl_npz,
     smpl_forward,
     smpl_from_numpy,
@@ -16,6 +17,7 @@ __all__ = [
     "HumaniflowModel",
     "PoseHighResolutionNet",
     "SMPLModel",
+    "convert_smpl_pkl",
     "get_kp_locations_confs_from_heatmaps",
     "load_smpl_npz",
     "resnet18",

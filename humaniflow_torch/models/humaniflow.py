@@ -11,7 +11,9 @@ from an explicit torch.Generator, or takes the base noise from the caller
 Training: `apply(train=True)` runs the encoder's BatchNorm on batch
 statistics and updates its running ones in place (flax's update, see
 models/resnet.py::BatchNorm); `compute_for_loglik` gives the teacher-forced
-flow contexts of all 23 parts, scored by `pose_log_prob`.
+flow contexts of all 23 parts, scored by `pose_log_prob`; with flow
+BatchNorm layers, `update_pose_flow_batchnorm_stats` moves their running
+statistics after the optimizer's step.
 """
 
 import os
@@ -26,7 +28,7 @@ from ..flows import cuda_level
 from ..flows.factory import ConditionalFlow, create_conditional_norm_flow
 from ..flows.so3_flow import SO3FlowDistribution
 from ..ops.rotation import rot6d_to_rotmat
-from ..ops.so3 import so3_exp
+from ..ops.so3 import so3_exp, so3_log
 from ..utils.device import resolve_device
 from .resnet import RESNET_FEAT_DIMS, resnet18, resnet50
 from .smpl import SMPL_PARENTS
@@ -93,6 +95,7 @@ class HumaniflowModel(nn.Module):
             transform_type=nf.TRANSFORM_TYPE,
             transform_hidden_dims=nf.TRANSFORM_NN_HIDDEN_DIMS,
             permute_type=nf.PERMUTE_TYPE,
+            permute_hidden_dims=nf.PERMUTE_NN_HIDDEN_DIMS,
             batch_norm=nf.BATCH_NORM,
             radial_tanh_radius=nf.COMPACT_SUPPORT_RADIUS,
             base_dist_std=nf.BASE_DIST_STD,
@@ -132,8 +135,8 @@ class HumaniflowModel(nn.Module):
             w.uniform_(-bound, bound, generator=generator)
             b.uniform_(-bound, bound, generator=generator)
         for t in self.flow.transforms:
-            if hasattr(t, "hypernet"):
-                t.hypernet.reset_parameters(generator)
+            if hasattr(t, "reset_parameters"):
+                t.reset_parameters(generator)
 
     @property
     def device(self) -> torch.device:
@@ -356,3 +359,16 @@ class HumaniflowModel(nn.Module):
         :return: (B, 23) log-probabilities.
         """
         return self.so3_dist.log_prob(pose_rotmats, contexts, self.all_parts)
+
+    @torch.no_grad()
+    def update_pose_flow_batchnorm_stats(self, pose_rotmats, contexts):
+        """Move the flow BatchNorm layers' running statistics towards a
+        training batch, in place (no-op unless NORM_FLOW.BATCH_NORM): the
+        density-direction chain from the principal so(3) log-map branch of
+        the targets, as the JAX model's update.
+
+        :param pose_rotmats: (B, 23, 3, 3) target rotations.
+        :param contexts: (B, 23, ctx) from apply(compute_for_loglik=True).
+        """
+        if self.flow.has_batch_norm:
+            self.flow.update_batchnorm_stats(so3_log(pose_rotmats), contexts)

@@ -10,6 +10,7 @@ gradients reach the shape and the rotations on both devices.
 """
 
 import os
+import pickle
 from dataclasses import dataclass, field, fields
 from typing import Optional
 
@@ -120,9 +121,36 @@ def smpl_from_numpy(arrays: dict, device="cuda") -> SMPLModel:
     return SMPLModel(**out)
 
 
+def convert_smpl_pkl(pkl_path: str, npz_path: str):
+    """Convert an SMPL .pkl (neutral, male or female) into the .npz that
+    load_smpl_npz reads: float64 arrays with a dense J_regressor, posedirs
+    reshaped from (V, 3, 207) to (207, V·3), faces as int64.  The same file
+    as the JAX package's converter writes.  Pickles run code when loaded:
+    convert only files you trust."""
+    with open(pkl_path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+
+    def arr(x):
+        return np.array(x, dtype=np.float64)
+
+    j_reg = data["J_regressor"]
+    if hasattr(j_reg, "toarray"):  # scipy.sparse
+        j_reg = j_reg.toarray()
+    posedirs = arr(data["posedirs"])  # (V, 3, 207)
+    posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T  # (207, V*3)
+    np.savez(
+        npz_path,
+        v_template=arr(data["v_template"]),
+        shapedirs=arr(data["shapedirs"]),
+        posedirs=posedirs,
+        J_regressor=arr(j_reg),
+        weights=arr(data["weights"]),
+        f=np.array(data["f"], np.int64),
+    )
+
+
 def load_smpl_npz(path: str, regressor_paths: Optional[dict] = None, device="cuda") -> SMPLModel:
-    """Load a converted SMPL .npz (as written by the JAX package's
-    convert_smpl_pkl)."""
+    """Load a converted SMPL .npz (as convert_smpl_pkl writes it)."""
     data = np.load(path)
     extra = {}
     for name, p in (regressor_paths or {}).items():

@@ -8,7 +8,7 @@ from .predict import (
 )
 from .predict_hrnet import predict_hrnet_batch
 from .protocols import EVAL_METRICS_3DPW, EVAL_METRICS_SSP3D
-from .train import make_optimizer, make_synth_data_fn, train_humaniflow
+from .train import make_optimizer, make_synth_data_fn, make_training_renderer, train_humaniflow
 from .train_step import make_train_step, predict_joints2d
 
 __all__ = [
@@ -20,6 +20,7 @@ __all__ = [
     "make_optimizer",
     "make_predict_fn",
     "make_synth_data_fn",
+    "make_training_renderer",
     "make_train_step",
     "optimise_batch_with_humaniflow_prior",
     "predict_joints2d",

@@ -57,6 +57,22 @@ def make_optimizer(model: HumaniflowModel, cfg: HumaniflowConfig) -> torch.optim
     return torch.optim.Adam(model.parameters(), lr=cfg.TRAIN.LR, betas=(0.9, 0.999), eps=1e-8)
 
 
+def make_training_renderer(cfg: HumaniflowConfig, cull: bool = True, device=None):
+    """The renderer of the synthetic-data batch (scripts/run_train.py:78-103):
+    perspective at cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH and
+    cfg.DATA.PROXY_REP_SIZE², binned (kernel K4 on CUDA), per-face texels and
+    no UV planes, back-face culled unless cull=False, with the per-batch
+    overflow count.  The JAX renderer's binning capacities (live_cap, k_max)
+    have no counterpart: K4 has no capacity."""
+    from ..render import TexturedIUVRenderer
+
+    return TexturedIUVRenderer(
+        img_wh=cfg.DATA.PROXY_REP_SIZE, projection_type="perspective",
+        focal_length=cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH, rasterizer="binned", texture_sampling="face",
+        emit_uv=False, binned_cull=cull, emit_overflow=True, device=device,
+    )
+
+
 def make_synth_data_fn(cfg: HumaniflowConfig, smpl: SMPLModel, renderer):
     """The synthetic-data generator `synth_batch(draws, pose72 (B, 72),
     texture (B, 1200, 800, 3), background (B, wh, wh, 3)) -> batch dict`

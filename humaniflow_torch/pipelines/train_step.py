@@ -8,7 +8,10 @@ running statistics in place.  When the loss or the global gradient norm is
 not finite, all three are left exactly as they were (the BatchNorm
 statistics, which the forward updates, are restored from a copy taken before
 it), and the step reports nan_skipped = 1.  That decision costs one host
-sync per step.
+sync per step.  With flow BatchNorm layers, a step that is taken then moves
+their running statistics (which are parameters, stepped by the optimizer
+first) from the targets and the forward's teacher-forced contexts, as the
+JAX step does; a skipped step leaves them too.
 
 SMPL runs through kernel K2 with its gradient (models/cuda_lbs.py
 `SMPLVerts`), so the joints-2D loss reaches the shape and the sampled
@@ -123,17 +126,17 @@ def make_train_step(model: HumaniflowModel, smpl: SMPLModel, loss_cfg: LossConfi
                 mt = _metric_tensors(out, batch)
             mt["pred_joints2D"] = pred["joints2D"][:, 0].detach()
             metrics["metric_tensors"] = mt
-        return total, metrics
+        return total, metrics, out["pose_flow_contexts_for_loglik"].detach()
 
     def train_step(batch: Dict, generator: Optional[torch.Generator] = None, noise=None, update: bool = True):
         saved_bn = [b.clone() for b in bn_buffers]
         if not update:
             with torch.no_grad():
-                _, metrics = loss_fn(batch, generator, noise)
+                _, metrics, _ = loss_fn(batch, generator, noise)
             torch._foreach_copy_(bn_buffers, saved_bn)
             return metrics
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, generator, noise)
+        loss, metrics, flow_ctx = loss_fn(batch, generator, noise)
         with fp32_convolutions():  # the backward's convolutions run here, outside the forward's context
             loss.backward()
         for p in params:  # optax updates every parameter, zero gradients included
@@ -143,6 +146,8 @@ def make_train_step(model: HumaniflowModel, smpl: SMPLModel, loss_cfg: LossConfi
         ok = torch.isfinite(loss.detach()) & torch.isfinite(gnorm)
         if bool(ok):
             optimizer.step()
+            # the flow BatchNorm statistics move from the stepped values, with the forward's contexts
+            model.update_pose_flow_batchnorm_stats(batch["pose_rotmats"], flow_ctx)
         else:
             torch._foreach_copy_(bn_buffers, saved_bn)
         metrics["grad_norm"] = gnorm

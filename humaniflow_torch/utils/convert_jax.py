@@ -8,7 +8,9 @@ onto the port's HumaniflowModel:
 * BatchNorm scale/bias → weight/bias, batch_stats mean/var → running stats;
 * dense kernels (in, out) → Linear weights (out, in);
 * the 23-part stacked `fc_flow_context` and `flows` trees → the stacked
-  (23, out, in) weights of the port.
+  (23, out, in) weights of the port: the coupling and linear-PLU hypernets,
+  the MADE weights (23, blocks, out, in), the linear PLU's packed `LU`
+  and the flow BatchNorm's `log_gamma`, `beta` and running statistics.
 
 `hrnet_params_from_jax` does the same for the flax PoseHighResolutionNet's
 variables ({'params', 'batch_stats'}) onto the port's PoseHighResolutionNet,
@@ -55,11 +57,14 @@ def port_key(path: Tuple[str, ...], ndim: int) -> Tuple[str, Optional[Tuple[int,
     if top == "fc_flow_context":
         return ("fc_flow_context_weight", (0, 2, 1)) if kernel else ("fc_flow_context_bias", None)
     if top == "flows":
-        # ('flows', 'transform_i', 'hypernet', 'layer_k', 'kernel'|'bias')
         i = int(path[1].split("_")[1])
-        k = int(path[3].split("_")[1])
+        if len(path) == 3:  # ('flows', 'transform_i', 'LU' | a BatchNorm leaf)
+            return f"flow.transforms.{i}.{path[2]}", None
+        # ('flows', 'transform_i', 'hypernet'|'made', 'layer_k', 'kernel'|'bias')
+        net, k = path[2], int(path[3].split("_")[1])
         kind = "weights" if kernel else "biases"
-        return f"flow.transforms.{i}.hypernet.{kind}.{k}", (0, 2, 1) if kernel else None
+        perm = ((0, 2, 1) if net == "hypernet" else (0, 1, 3, 2)) if kernel else None
+        return f"flow.transforms.{i}.{net}.{kind}.{k}", perm
     # fc1, fc_shape, fc_glob, fc_cam, fc_isgc
     return (f"{top}.weight", (1, 0)) if kernel else (f"{top}.bias", None)
 

@@ -13,8 +13,13 @@ what changes is the naming and, for the HuManiFlow model, the stacking:
 * the 23 per-part context layers `fc_flow_context.{part}` (256 + 9·ancestors
   inputs) → rows of the stacked (23, 64, 256 + 9·max_ancestors) weight, the
   inputs of absent ancestor slots zero;
-* the per-part coupling hypernets `pose_so3flow_transform_modules.{part·2 +
-  m}.nn.layers.{l}` → row `part` of the m-th coupling's stacked weights.
+* the per-part flow modules `pose_so3flow_transform_modules.{part·M + m}`
+  (M modules a part: every hypernet, of a coupling or of the conditional
+  linear PLU, and pyro's BatchNorm layers) → row `part` of the m-th
+  module's stacked weights: `nn.layers.{l}` for a hypernet; `gamma`,
+  `beta`, `moving_mean` and `moving_variance` for a BatchNorm layer, with
+  log_gamma = log(relu(γ) + 1e-6).  The masked transforms and the
+  unconditional linear PLU have no mapping, as in the JAX converter.
 
 `load_humaniflow_checkpoint` also takes the port's own training
 checkpoints (`pipelines/train.py` through `utils/checkpoints.py`), which
@@ -29,6 +34,7 @@ from typing import Dict
 
 import torch
 
+from ..flows.autoregressive import FlowBatchNorm
 from ..models.hrnet import PoseHighResolutionNet
 from ..models.humaniflow import HumaniflowModel
 
@@ -124,15 +130,29 @@ def humaniflow_state_from_reference(sd: Dict[str, torch.Tensor], model: Humanifl
     state["fc_flow_context_weight"] = w
     state["fc_flow_context_bias"] = b
 
-    slots = [i for i, t in enumerate(model.flow.transforms) if hasattr(t, "hypernet")]
+    # the reference's per-part module list holds the modules with weights:
+    # every hypernet and, with BATCH_NORM, pyro's BatchNorm layers
+    slots = [i for i, t in enumerate(model.flow.transforms) if hasattr(t, "hypernet") or isinstance(t, FlowBatchNorm)]
     for m, slot in enumerate(slots):
-        hyper = model.flow.transforms[slot].hypernet
+        t = model.flow.transforms[slot]
+
+        def ref_name(part, leaf):
+            return f"pose_so3flow_transform_modules.{part * len(slots) + m}.{leaf}"
+
+        def stacked(leaf):
+            return torch.stack([read(ref_name(part, leaf)) for part in range(model.num_bodyparts)])
+
+        if isinstance(t, FlowBatchNorm):
+            # pyro's positive γ̂ = relu(γ) + 1e-6 is the port's exp(log_gamma)
+            prefix = f"flow.transforms.{slot}"
+            state[f"{prefix}.log_gamma"] = torch.log(torch.relu(stacked("gamma")) + 1e-6)
+            state[f"{prefix}.beta"] = stacked("beta")
+            state[f"{prefix}.moving_mean"] = stacked("moving_mean")
+            state[f"{prefix}.moving_var"] = stacked("moving_variance")
+            continue
         for kind, ref_leaf in (("weights", "weight"), ("biases", "bias")):
-            for layer in range(len(getattr(hyper, kind))):
-                state[f"flow.transforms.{slot}.hypernet.{kind}.{layer}"] = torch.stack([
-                    read(f"pose_so3flow_transform_modules.{part * len(slots) + m}.nn.layers.{layer}.{ref_leaf}")
-                    for part in range(model.num_bodyparts)
-                ])
+            for layer in range(len(getattr(t.hypernet, kind))):
+                state[f"flow.transforms.{slot}.hypernet.{kind}.{layer}"] = stacked(f"nn.layers.{layer}.{ref_leaf}")
     read.check_all_used()
     return state
 

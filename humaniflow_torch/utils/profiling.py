@@ -319,19 +319,18 @@ TRAIN_B = 72  # the training batch: K4's meshes
 
 
 def training_renderer(device="cuda", img: int = None):
-    """The renderer of the synthetic-data batch (scripts/run_train.py --cull:
-    perspective at the default focal length, binned, per-face texels,
-    culled) at img² or the default 256².  Its binning capacities live_cap
-    28672 and k_max 512 have no counterpart: K4 has no capacity."""
+    """The renderer of the synthetic-data batch at the default config
+    (pipelines/train.py::make_training_renderer, culled, as run_train's
+    default --cull) at img² or the default 256²."""
+    import dataclasses
+
     from ..configs import get_humaniflow_cfg_defaults
-    from ..render import TexturedIUVRenderer
+    from ..pipelines.train import make_training_renderer
 
     cfg = get_humaniflow_cfg_defaults()
-    return TexturedIUVRenderer(
-        img_wh=img or cfg.DATA.PROXY_REP_SIZE, projection_type="perspective",
-        focal_length=cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH, rasterizer="binned", texture_sampling="face",
-        emit_uv=False, binned_cull=True, emit_overflow=True, device=device,
-    )
+    if img:
+        cfg.DATA = dataclasses.replace(cfg.DATA, PROXY_REP_SIZE=img)
+    return make_training_renderer(cfg, cull=True, device=device)
 
 
 def training_screen(smpl, b: int, seed: int, device="cuda", img: int = None):

@@ -153,8 +153,17 @@ def _reference_humaniflow_state_dict(jparams, jm, scale=1.0):
         n_in = jm.isgc_dim + 9 * len(jm.ancestors[part])
         put(f"fc_flow_context.{part}.weight", np.asarray(jparams["fc_flow_context"]["kernel"][part, :n_in]).T)
         put(f"fc_flow_context.{part}.bias", jparams["fc_flow_context"]["bias"][part])
-    slots = sorted((int(k.split("_")[1]), v) for k, v in jparams["flows"].items() if "hypernet" in v)
+    slots = sorted((int(k.split("_")[1]), v) for k, v in jparams["flows"].items()
+                   if "hypernet" in v or "log_gamma" in v)
     for m, (_, node) in enumerate(slots):
+        if "log_gamma" in node:  # pyro's BatchNorm: gamma, whose relu(γ) + 1e-6 is exp(log_gamma)
+            for part in range(jm.num_bodyparts):
+                mod = f"pose_so3flow_transform_modules.{part * len(slots) + m}"
+                put(f"{mod}.gamma", np.exp(node["log_gamma"][part]))
+                put(f"{mod}.beta", node["beta"][part])
+                put(f"{mod}.moving_mean", node["moving_mean"][part])
+                put(f"{mod}.moving_variance", node["moving_var"][part])
+            continue
         for layer, leaves in node["hypernet"].items():
             li = int(layer.split("_")[1])
             for part in range(jm.num_bodyparts):
@@ -162,3 +171,77 @@ def _reference_humaniflow_state_dict(jparams, jm, scale=1.0):
                 put(f"{mod}.weight", np.asarray(leaves["kernel"][part]).T)
                 put(f"{mod}.bias", leaves["bias"][part])
     return sd
+
+
+class PerPartFlow:
+    """A JAX ConditionalFlow applied part by part: parameters with a leading
+    part axis, inputs with the part axis second to last (jax.vmap of the
+    single flow).  The JAX model stacks its flow over the parts, which is
+    right for the couplings and the conditional linear PLU but not for the
+    masked transforms (`_apply_made` indexes the part axis with the block
+    index), the unconditional linear PLU (its init converts a traced array
+    under jax.vmap) or BatchNorm (its log-det is summed over the part axis
+    too); with those the JAX model's flow is replaced by this."""
+
+    def __init__(self, flow):
+        self.flow = flow
+        self.transforms = flow.transforms
+        self.event_dim = flow.event_dim
+        self.base_dist_std = flow.base_dist_std
+        self.has_batch_norm = flow.has_batch_norm
+
+    def forward(self, params, z, ctx):
+        return jax.vmap(self.flow.forward, in_axes=(0, -2, -2), out_axes=-2)(params, z, ctx)
+
+    def log_prob(self, params, y, ctx):
+        return jax.vmap(self.flow.log_prob, in_axes=(0, -2, -2), out_axes=-1)(params, y, ctx)
+
+    def update_batchnorm_stats(self, params, y, ctx):
+        return jax.vmap(self.flow.update_batchnorm_stats, in_axes=(0, -2, -2))(params, y, ctx)
+
+
+def menu_model_pair(transform_type, permute_type, batch_norm, num_j2d_samples=None, num_transforms=None,
+                    num_spline_segments=None):
+    """(JAX model, its params, port model holding them, port cfg, JAX cfg)
+    at IMG² with the flow of the given factory variant, random encoder
+    BatchNorm and random flow BatchNorm parameters.  Where the JAX model's
+    stacked flow is not right, its flow is a PerPartFlow."""
+    from humaniflow_torch.models import HumaniflowModel as TorchModel
+    from humaniflow_torch.utils.convert_jax import params_from_jax
+    from humaniflow_tpu.flows import transforms as jtransforms
+    from humaniflow_tpu.models import HumaniflowModel as JaxModel
+
+    jcfg, tcfg = small_cfgs(18)
+    nf = dict(TRANSFORM_TYPE=transform_type, PERMUTE_TYPE=permute_type, BATCH_NORM=batch_norm)
+    if num_transforms is not None:
+        nf["NUM_TRANSFORMS"] = num_transforms
+    if num_spline_segments is not None:
+        nf["NUM_SPLINE_SEGMENTS"] = num_spline_segments
+    for cfg in (jcfg, tcfg):
+        cfg.MODEL = dataclasses.replace(cfg.MODEL, NORM_FLOW=dataclasses.replace(cfg.MODEL.NORM_FLOW, **nf))
+        if num_j2d_samples is not None:
+            cfg.LOSS = dataclasses.replace(cfg.LOSS, NUM_J2D_SAMPLES=num_j2d_samples)
+    source = TorchModel(tcfg.MODEL, device="cpu", generator=torch.Generator().manual_seed(11))
+    randomise_batchnorm(source)
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for name, p in source.flow.named_parameters():
+            if name.endswith(("log_gamma", "beta", "moving_mean")):
+                p.uniform_(-0.3, 0.3, generator=gen)
+            elif name.endswith("moving_var"):
+                p.uniform_(0.5, 2.0, generator=gen)
+    jm = JaxModel(jcfg.MODEL)
+    init = jtransforms.LinearPLU.init
+    if permute_type == "linear_plu":  # the shapes only: its init cannot run under jax.vmap
+        jtransforms.LinearPLU.init = lambda self, key: {"LU": jnp.zeros((self.input_dim,) * 2)}
+    try:
+        jparams = jax_params_from_port(source, jm)
+    finally:
+        jtransforms.LinearPLU.init = init
+    stacked_right = transform_type in ("spline_coupling", "additive_coupling", "affine_coupling")
+    if not stacked_right or permute_type == "linear_plu" or batch_norm:
+        jm.flow = PerPartFlow(jm.flow)
+        jm.so3_dist = dataclasses.replace(jm.so3_dist, flow=jm.flow)
+    tm = TorchModel(tcfg.MODEL, device="cpu", generator=torch.Generator().manual_seed(99))
+    params_from_jax(jparams, tm)
+    return jm, jparams, tm, tcfg, jcfg

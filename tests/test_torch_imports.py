@@ -57,6 +57,9 @@ def test_port_imports_with_jax_blocked():
         "import humaniflow_torch.utils.checkpoints, humaniflow_torch.utils.profiling\n"
         "import humaniflow_torch.render.cuda_tiled, humaniflow_torch.utils.visualise\n"
         "import humaniflow_torch.pipelines.optimise, humaniflow_torch.cli.run_optimise\n"
+        "import humaniflow_torch.cli.run_evaluate, humaniflow_torch.cli.run_train\n"
+        "import humaniflow_torch.cli.convert_model_files, humaniflow_torch.data.native_loader\n"
+        "import humaniflow_torch.flows.autoregressive, humaniflow_torch.data.datasets\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -65,7 +68,7 @@ def test_port_imports_with_jax_blocked():
 
 
 def _entry_points():
-    from humaniflow_torch.cli import run_optimise, run_predict
+    from humaniflow_torch.cli import run_evaluate, run_optimise, run_predict, run_train
     from humaniflow_torch.configs import get_humaniflow_cfg_defaults, get_optimise_cfg_defaults
     from humaniflow_torch.models import HumaniflowModel, PoseHighResolutionNet, synthetic_smpl
     from humaniflow_torch.pipelines import (
@@ -73,6 +76,7 @@ def _entry_points():
         evaluate_humaniflow,
         make_optimise_fn,
         make_predict_fn,
+        make_training_renderer,
         optimise_batch_with_humaniflow_prior,
         predict_hrnet_batch,
         predict_humaniflow,
@@ -99,6 +103,9 @@ def _entry_points():
         "optimise_batch_with_humaniflow_prior": lambda: optimise_batch_with_humaniflow_prior(
             model, smpl, get_optimise_cfg_defaults(), {}),
         "cli.run_optimise": lambda: run_optimise.main(["-I", REPO, "-P", REPO, "-S", REPO, "-C", "weights.tar"]),
+        "cli.run_evaluate": lambda: run_evaluate.main(["-D", "3dpw", "-C", "weights.tar"]),
+        "cli.run_train": lambda: run_train.main(["-E", os.path.join(REPO, "build", "no_experiment")]),
+        "make_training_renderer": lambda: make_training_renderer(cfg),
     }
 
 
@@ -108,6 +115,7 @@ def _entry_points():
         "predict_humaniflow", "make_predict_fn", "HumaniflowModel", "synthetic_smpl", "SMPLModel.to",
         "evaluate_humaniflow", "TexturedIUVRenderer", "PoseHighResolutionNet", "predict_hrnet_batch",
         "cli.run_predict", "make_optimise_fn", "optimise_batch_with_humaniflow_prior", "cli.run_optimise",
+        "cli.run_evaluate", "cli.run_train", "make_training_renderer",
     ],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
