@@ -8,8 +8,9 @@ Phases, each of which raises on failure (exit code != 0):
    (into build/torch_kernels/, one nvcc per source, all at once);
 2. hold kernels K2 (smpl_verts) and K1 (smpl_moments) against their plain
    PyTorch twins at the main path's shapes and at ragged ones (K1 at
-   (G, N) = (1, 1), (3, 7), (2, 17), (32, 10), (4, 101) and (32, 100), the
-   same bits on two launches, printing its chunks), and time both;
+   (G, N) = (1, 1), (3, 7), (2, 17), (32, 10), (4, 101), (32, 50), (16, 100)
+   and (32, 100), the same bits on two launches, printing its chunks), and
+   time both (K1 also at a rank's (32, 50) and (16, 100));
 3. drive the main path through predict_humaniflow at the full width of the
    default model (ResNet-18, 256² proxy, 8-level flow, synthetic SMPL with
    6890 vertices; seeded random weights), B=32 images, N=100 samples, and
@@ -52,9 +53,10 @@ Phases, each of which raises on failure (exit code != 0):
    near-degenerate faces; 2,000 large boxes; all faces culled; NaN and
    infinite coordinates; indices out of range), printing its tile plan, and
    time it at the training batch; hold K2's forward against its twin at every row
-   count the paths give it (32, 72, 320, 576, 3,200, 3,232) and at ragged
-   ones (1, 17, 33), printing the tile forward_plan picks for each, and time
-   it at the paths' shapes (CUDA events and the kernel's device time); hold
+   count the paths give it (32, 72, 320, 576, 3,200, 3,232; a rank's 16, 36,
+   288 and 1,600 on phase 16's paths) and at ragged ones (1, 17, 33),
+   printing the tile forward_plan picks for each, and time it at the
+   paths' shapes (CUDA events and the kernel's device time); hold
    K2 with its gradient (the backward kernel, then float32 products)
    against autograd of its twin at B=32, 72 and 576, and time it; check one
    train step on the card against the CPU
@@ -98,11 +100,24 @@ Phases, each of which raises on failure (exit code != 0):
    sample_batch and texture upload timed; (c) the evaluate CLI
    (cli/run_evaluate.py) on fabricated 3DPW (N=10) and SSP-3D (N=100)
    directories of 32 frames with the train CLI's last checkpoint (finite
-   per-frame metrics).
+   per-frame metrics);
+16. the parallel layer (humaniflow_torch/parallel/), each rank a process
+   started by parallel.spawn: (a) NCCL at world size 1: predict_humaniflow
+   at B=32, N=100 on a 1-D and on a 1×1 ("data", "sample") mesh held to
+   phase 3, the sharded inference program on the 1×1 mesh held to phase 4,
+   one SSP-3D batch and 3 train steps at B=72 (synth batch and step) held
+   to the same runs in one process, and the mesh path's overhead (predict
+   img/s, train step ms) against one process, in turns in the rank; (b) 2
+   gloo ranks on the one card: the 1×2 sample split of distribution
+   inference (K1 at (32, 50) on each rank) held to phase 4, a train step at
+   B=72 (36 a rank) and an SSP-3D batch (16 a rank) held to one process;
+   K1, K2, K3 and K4 launched on every rank; (c) the predict, evaluate and
+   train CLIs with --num_devices 1 (--sample_devices 1, -D 1) on phase
+   15's files, the evaluation's per-frame metrics held to phase 15c's.
 
 Phases 1-7 and 11-14 run with the fused level off.  Each path of phases 3, 4,
-6, 7, 9, 10, 11, 14 and 15 is driven with the kernel launch counters
-set to 0 just before it and read just after; launches made to compare a
+6, 7, 9, 10, 11, 14, 15 and 16 (in each rank) is driven with the kernel
+launch counters set to 0 just before it and read just after; launches made to compare a
 kernel with its twin, or to time it, are not counted.  Last, torch.profiler
 counts the kernel launches of one call of K2's backward and takes the
 kernels' own device ms (K1 and K4 beside their bounds).  Prints one
@@ -115,6 +130,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 B, N, V, IMG = 32, 100, 6890, 256
@@ -136,6 +152,8 @@ FUSED_VAR_RTOL = 1e-2  # fused vs eager variance: sample vertices move by ≤ 5e
 HEATMAP_RTOL = 1e-4  # GPU vs CPU HRNet heatmaps, relative to the largest |heatmap|
 SPLINE_OPS = 190  # arithmetic of one spline evaluation, counted from csrc/flow_level.cu
 TRAIN_B, TRAIN_NJ = 72, 8  # the training batch and its joints-2D samples (default config)
+# K1 at a rank's (G, N) on a 1×2 and a 2×1 split of (B, N) (phase 16)
+MOMENTS_MESH_SHAPES = (((B, N // 2), V), ((B // 2, N), V))
 GRAD_RTOL = 1e-3  # GPU vs CPU train step: each gradient tensor, relative to its largest |value|
 LOSS_RTOL = 2e-4  # GPU vs CPU train step: loss terms
 K2_GRAD_RTOL = 1e-5  # K2's backward vs autograd of the twin, relative to the largest gradient
@@ -213,8 +231,9 @@ def check_kernels(smpl):
         bound_ms=bound, bound_by=by,
     )
 
-    worst = 0.0
-    for rows, v in (((1, 1), 1000), ((3, 7), 1000), ((2, 17), V), ((B, 10), V), ((4, 101), V), ((B, N), V)):
+    worst, mesh_records = 0.0, {}
+    for rows, v in (((1, 1), 1000), ((3, 7), 1000), ((2, 17), V), ((B, 10), V), ((4, 101), V)) + MOMENTS_MESH_SHAPES \
+            + (((B, N), V),):
         args = _kernel_args(smpl, rows, v, seed=2)
         got = cuda_lbs.smpl_moments(*args)
         again = cuda_lbs.smpl_moments(*args)
@@ -231,6 +250,13 @@ def check_kernels(smpl):
             raise AssertionError(f"K1 disagrees with its plain twin: {rel} > {MOMENTS_RTOL}")
         if not torch.equal(got, again):
             raise AssertionError(f"K1 gave other bits on a second launch at (G, N)={rows}")
+        if (rows, v) in MOMENTS_MESH_SHAPES:  # a rank's shape on phase 16's sample and data splits
+            g, n = rows
+            bound, by = _bound_ms(*_work(args, got.numel(), g * n, V, extra_flops_per_row_vertex=9))
+            ms = cuda_ms(lambda: cuda_lbs.smpl_moments(*args), 20)
+            mesh_records[f"g{g}_n{n}"] = dict(ms=ms, bound_ms=bound)
+            print(f"K1 at a rank's (G, N)=({g}, {n}): {ms:.4f} ms per call (CUDA events) against a bound of "
+                  f"{bound:.4f} ms ({by})")
     flops, nbytes = _work(args, got.numel(), B * N, V, extra_flops_per_row_vertex=9)
     bound, by = _bound_ms(flops, nbytes)
     ms = cuda_ms(lambda: cuda_lbs.smpl_moments(*args), 20)
@@ -240,6 +266,7 @@ def check_kernels(smpl):
         name="smpl_moments", replaces="humaniflow_tpu/models/pallas_lbs.py:267", max_abs_err=worst, ms=ms,
         plain_ms=cuda_ms(lambda: cuda_lbs.smpl_verts_moments_plain(*args), 5),
         bound_ms=bound, bound_by=by,
+        **{f"{key}_{shape}": rec[key] for shape, rec in mesh_records.items() for key in ("ms", "bound_ms")},
     )
     return records
 
@@ -946,7 +973,10 @@ def check_raster(smpl):
     )
 
 
-FORWARD_ROWS = (B, TRAIN_B, 10 * B, TRAIN_B * TRAIN_NJ, B * N, B * (N + 1))  # K2's forward rows on the paths
+# K2's forward rows on the paths, then a rank's on phase 16b's (point estimates of 16 eval images, 36
+# training images and their 288 joint samples, 1,600 eval samples)
+FORWARD_ROWS = (B, TRAIN_B, 10 * B, TRAIN_B * TRAIN_NJ, B * N, B * (N + 1),
+                B // 2, TRAIN_B // 2, TRAIN_B * TRAIN_NJ // 2, B * N // 2)
 RAGGED_ROWS = (1, 17, 33)
 
 
@@ -1880,14 +1910,14 @@ def _write_eval_sets(root):
     paths.PW3D_PATH, paths.SSP3D_PATH = pw3d, ssp3d
 
 
-def train_and_evaluate_clis(default_timings):
+def train_and_evaluate_clis(default_timings, root):
     """Phase 15b-c: the train CLI on the card (two epochs, then a resume for
-    a third) on files written at run time, with the host's share timed; then
-    the evaluate CLI on both protocols with the checkpoint it wrote.
-    Returns the counted launches by path."""
+    a third) on files written at run time into `root`, with the host's share
+    timed; then the evaluate CLI on both protocols with the checkpoint it
+    wrote.  Returns (the counted launches by path, that checkpoint); the
+    files stay in `root` for phase 16."""
     import math
     import pickle
-    import tempfile
 
     import numpy as np
     import torch
@@ -1900,87 +1930,491 @@ def train_and_evaluate_clis(default_timings):
     launches = {}
     saved = dict(vars(paths))
     try:
-        with tempfile.TemporaryDirectory() as root:
-            for gender, seed in (("NEUTRAL", 0), ("MALE", 1), ("FEMALE", 2)):
-                npz = os.path.join(root, f"SMPL_{gender}.npz")
-                _write_smpl_npz(npz, seed)
-                setattr(paths, f"SMPL_{gender}", npz)
-            _write_training_files(root)
-            if native_loader.native_available():
-                print("training backgrounds decoded by the native loader")
-            else:
-                why = native_loader.build_error().splitlines()
-                print("training backgrounds decoded by OpenCV (the native loader: "
-                      + next((line for line in why if "error:" in line), why[-1]).strip() + ")")
+        for gender, seed in (("NEUTRAL", 0), ("MALE", 1), ("FEMALE", 2)):
+            npz = os.path.join(root, f"SMPL_{gender}.npz")
+            _write_smpl_npz(npz, seed)
+            setattr(paths, f"SMPL_{gender}", npz)
+        _write_training_files(root)
+        if native_loader.native_available():
+            print("training backgrounds decoded by the native loader")
+        else:
+            why = native_loader.build_error().splitlines()
+            print("training backgrounds decoded by OpenCV (the native loader: "
+                  + next((line for line in why if "error:" in line), why[-1]).strip() + ")")
 
-            data = OnTheFlySMPLTrainDataset(paths.TRAIN_POSES_PATH, paths.TRAIN_TEXTURES_PATH,
-                                            paths.TRAIN_BACKGROUNDS_PATH, img_wh=IMG)
-            idx = np.arange(TRAIN_B)
-            data.sample_batch(idx)
-            t0 = time.perf_counter()
-            for _ in range(3):
-                host = data.sample_batch(idx)
-            sample_ms = 1e3 * (time.perf_counter() - t0) / 3
-            t0 = time.perf_counter()
-            for _ in range(3):
-                torch.as_tensor(host["texture"], device="cuda")
-            torch.cuda.synchronize()
-            upload_ms = 1e3 * (time.perf_counter() - t0) / 3
-            backgrounds = [data.backgrounds_paths[i % len(data.backgrounds_paths)] for i in range(TRAIN_B)]
-            t0 = time.perf_counter()
-            for _ in range(3):
-                native_loader.decode_jpeg_batch(backgrounds, IMG)
-            decode_ms = 1e3 * (time.perf_counter() - t0) / 3
-            nbytes = sum(a.nbytes for a in host.values())
-            print(f"host data path B={TRAIN_B}: sample_batch {sample_ms:.1f} ms ({nbytes / 1e6:.0f} MB: textures "
-                  f"{host['texture'].nbytes / 1e6:.0f} MB float32), of which the background decode {decode_ms:.1f} ms; "
-                  f"texture upload {upload_ms:.1f} ms; on the card (phase 11) synth {default_timings['synth_ms']:.2f} "
-                  f"ms, step {default_timings['step_ms']:.2f} ms")
+        data = OnTheFlySMPLTrainDataset(paths.TRAIN_POSES_PATH, paths.TRAIN_TEXTURES_PATH,
+                                        paths.TRAIN_BACKGROUNDS_PATH, img_wh=IMG)
+        idx = np.arange(TRAIN_B)
+        data.sample_batch(idx)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            host = data.sample_batch(idx)
+        sample_ms = 1e3 * (time.perf_counter() - t0) / 3
+        t0 = time.perf_counter()
+        for _ in range(3):
+            torch.as_tensor(host["texture"], device="cuda")
+        torch.cuda.synchronize()
+        upload_ms = 1e3 * (time.perf_counter() - t0) / 3
+        backgrounds = [data.backgrounds_paths[i % len(data.backgrounds_paths)] for i in range(TRAIN_B)]
+        t0 = time.perf_counter()
+        for _ in range(3):
+            native_loader.decode_jpeg_batch(backgrounds, IMG)
+        decode_ms = 1e3 * (time.perf_counter() - t0) / 3
+        nbytes = sum(a.nbytes for a in host.values())
+        print(f"host data path B={TRAIN_B}: sample_batch {sample_ms:.1f} ms ({nbytes / 1e6:.0f} MB: textures "
+              f"{host['texture'].nbytes / 1e6:.0f} MB float32), of which the background decode {decode_ms:.1f} ms; "
+              f"texture upload {upload_ms:.1f} ms; on the card (phase 11) synth {default_timings['synth_ms']:.2f} "
+              f"ms, step {default_timings['step_ms']:.2f} ms")
 
-            exp = os.path.join(root, "experiment")
-            wall = {}
-            for run, argv in (("2 epochs", ["-O", "TRAIN.NUM_EPOCHS", "2", "TRAIN.EPOCHS_PER_SAVE", "1"]),
-                              ("resume, epoch 3", ["-R", "1", "-O", "TRAIN.NUM_EPOCHS", "3"])):
-                _zero_counts()
-                t0 = time.perf_counter()
-                run_train.main(["-E", exp, "--cull", *argv])
-                wall[run] = time.perf_counter() - t0
-                c = launches[f"train CLI, {run}"] = _read_counts()
-                if c["raster"] == 0 or c["smpl_verts"] == 0 or c["smpl_verts_backward"] == 0:
-                    raise AssertionError(f"train CLI ({run}) did not launch K4, K2 and K2's backward: {c}")
-            with open(os.path.join(exp, "log.pkl"), "rb") as f:
-                history = pickle.load(f)
-            ckpts = [os.path.join(exp, f"epoch_{e:06d}.pt") for e in range(3)]
-            if not all(os.path.exists(p) for p in ckpts) or len(history["train_losses"]) != 3:
-                raise AssertionError(f"train CLI wrote {sorted(os.listdir(exp))}, {len(history['train_losses'])} epochs")
-            if not all(math.isfinite(x) for k in ("train_losses", "val_losses", "val_PVE-SC") for x in history[k]):
-                raise AssertionError(f"train CLI recorded a non-finite loss or metric: {history}")
-            steps = {"2 epochs": 2 * 3, "resume, epoch 3": 3}
-            print(f"train CLI B={TRAIN_B} {IMG}², {TRAIN_POSES} train / {VAL_POSES} val poses: train losses "
-                  f"{', '.join(f'{x:.2f}' for x in history['train_losses'])}; val PVE-SC "
-                  f"{', '.join(f'{x:.4f}' for x in history['val_PVE-SC'])}; "
-                  + "; ".join(f"{run} {s:.1f} s wall ({1e3 * s / steps[run]:.0f} ms a batch with set-up)"
-                              for run, s in wall.items()))
+        exp = os.path.join(root, "experiment")
+        wall = {}
+        for run, argv in (("2 epochs", ["-O", "TRAIN.NUM_EPOCHS", "2", "TRAIN.EPOCHS_PER_SAVE", "1"]),
+                          ("resume, epoch 3", ["-R", "1", "-O", "TRAIN.NUM_EPOCHS", "3"])):
+            _zero_counts()
+            t0 = time.perf_counter()
+            run_train.main(["-E", exp, "--cull", *argv])
+            wall[run] = time.perf_counter() - t0
+            c = launches[f"train CLI, {run}"] = _read_counts()
+            if c["raster"] == 0 or c["smpl_verts"] == 0 or c["smpl_verts_backward"] == 0:
+                raise AssertionError(f"train CLI ({run}) did not launch K4, K2 and K2's backward: {c}")
+        with open(os.path.join(exp, "log.pkl"), "rb") as f:
+            history = pickle.load(f)
+        ckpts = [os.path.join(exp, f"epoch_{e:06d}.pt") for e in range(3)]
+        if not all(os.path.exists(p) for p in ckpts) or len(history["train_losses"]) != 3:
+            raise AssertionError(f"train CLI wrote {sorted(os.listdir(exp))}, {len(history['train_losses'])} epochs")
+        if not all(math.isfinite(x) for k in ("train_losses", "val_losses", "val_PVE-SC") for x in history[k]):
+            raise AssertionError(f"train CLI recorded a non-finite loss or metric: {history}")
+        steps = {"2 epochs": 2 * 3, "resume, epoch 3": 3}
+        print(f"train CLI B={TRAIN_B} {IMG}², {TRAIN_POSES} train / {VAL_POSES} val poses: train losses "
+              f"{', '.join(f'{x:.2f}' for x in history['train_losses'])}; val PVE-SC "
+              f"{', '.join(f'{x:.4f}' for x in history['val_PVE-SC'])}; "
+              + "; ".join(f"{run} {s:.1f} s wall ({1e3 * s / steps[run]:.0f} ms a batch with set-up)"
+                          for run, s in wall.items()))
 
-            _write_eval_sets(root)
-            for protocol, n in (("3dpw", 10), ("ssp3d", N)):
-                out_dir = os.path.join(root, f"eval_{protocol}")
-                _zero_counts()
-                final = run_evaluate.main(["-D", protocol, "-C", ckpts[-1], "-B", str(B), "-N", str(n), "-S", out_dir])
-                c = launches[f"evaluate CLI, {protocol}"] = _read_counts()
-                if c["smpl_verts"] == 0 or (protocol == "ssp3d" and c["coverage"] == 0):
-                    raise AssertionError(f"evaluate CLI ({protocol}) launched {c}")
-                frames = {f: np.load(os.path.join(out_dir, f)) for f in os.listdir(out_dir)
-                          if f.endswith("_per_frame.npy") and f != "fname_per_frame.npy"}
-                bad = [f for f, a in frames.items() if a.shape[0] != EVAL_FRAMES or not np.isfinite(a).all()]
-                if bad or not frames or not all(math.isfinite(v) for v in final.values()):
-                    raise AssertionError(f"evaluate CLI ({protocol}): bad per-frame files {bad} or metrics {final}")
-                print(f"evaluate CLI {protocol} B={B} N={n}: {len(frames)} per-frame metric files of {EVAL_FRAMES} "
-                      f"frames, finite")
+        _write_eval_sets(root)
+        for protocol, n in (("3dpw", 10), ("ssp3d", N)):
+            out_dir = os.path.join(root, f"eval_{protocol}")
+            _zero_counts()
+            final = run_evaluate.main(["-D", protocol, "-C", ckpts[-1], "-B", str(B), "-N", str(n), "-S", out_dir])
+            c = launches[f"evaluate CLI, {protocol}"] = _read_counts()
+            if c["smpl_verts"] == 0 or (protocol == "ssp3d" and c["coverage"] == 0):
+                raise AssertionError(f"evaluate CLI ({protocol}) launched {c}")
+            frames = {f: np.load(os.path.join(out_dir, f)) for f in os.listdir(out_dir)
+                      if f.endswith("_per_frame.npy") and f != "fname_per_frame.npy"}
+            bad = [f for f, a in frames.items() if a.shape[0] != EVAL_FRAMES or not np.isfinite(a).all()]
+            if bad or not frames or not all(math.isfinite(v) for v in final.values()):
+                raise AssertionError(f"evaluate CLI ({protocol}): bad per-frame files {bad} or metrics {final}")
+            print(f"evaluate CLI {protocol} B={B} N={n}: {len(frames)} per-frame metric files of {EVAL_FRAMES} "
+                  f"frames, finite")
     finally:
         for k, v in saved.items():
             setattr(paths, k, v)
+    return launches, ckpts[-1]
+
+
+# ---------------------------------------------------------------- phase 16
+
+MESH_STEPS = 3  # phase 16a: data-parallel train steps at world size 1
+
+
+def _mesh_train_inputs(mesh):
+    """Phase 16's training inputs at TRAIN_B, made on the card from a seed
+    (poses, textures, backgrounds); on a mesh, this rank's block."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(91)
+    inputs = [0.3 * torch.randn((TRAIN_B, 72), generator=g, device="cuda"),
+              torch.rand((TRAIN_B, 1200, 800, 3), generator=g, device="cuda"),
+              torch.rand((TRAIN_B, IMG, IMG, 3), generator=g, device="cuda")]
+    if mesh is not None:
+        from humaniflow_torch.parallel import shard_batch
+
+        inputs = shard_batch(inputs, mesh)
+    return inputs
+
+
+def _mesh_train(cfg, smpl, mesh, steps):
+    """`steps` synthetic batches and train steps at TRAIN_B from the seed-0
+    model, in one process (mesh None) or as a rank of a data mesh; returns
+    (each step's loss terms, the first step's gradients on the host, the
+    launches, (the step, the last batch, the generator))."""
+    import torch
+
+    from humaniflow_torch.data.augmentation import Draws
+    from humaniflow_torch.models import HumaniflowModel
+    from humaniflow_torch.parallel import axis_rank, axis_size, replicate
+    from humaniflow_torch.pipelines import make_optimizer, make_synth_data_fn, make_train_step
+
+    model = HumaniflowModel(cfg.MODEL, generator=torch.Generator().manual_seed(0))
+    shard = None
+    if mesh is not None:
+        replicate(model, mesh)
+        shard = (axis_rank(mesh, "data"), axis_size(mesh, "data"))
+    step = make_train_step(model, smpl, cfg.LOSS, make_optimizer(model, cfg), img_wh=IMG, mesh=mesh)
+    synth = make_synth_data_fn(cfg, smpl, _training_renderer())
+    inputs = _mesh_train_inputs(mesh)
+    gen = torch.Generator("cuda").manual_seed(92)
+    draws = Draws(gen, shard=shard)
+    losses, grads = [], None
+    _zero_counts()
+    for _ in range(steps):
+        batch = synth(draws, *inputs)
+        batch.pop("rgb_in"), batch.pop("binning_overflow")
+        losses.append({k: float(v) for k, v in step(batch, generator=gen).items()})
+        if grads is None:
+            grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    return losses, grads, _read_counts(), (step, batch, gen)
+
+
+def _mesh_small_step(cfg, mesh):
+    """One train step at phase 11c's small shape (B=2, 64², 2 joint samples,
+    its weights, batch and noise), in one process or as a rank of a data
+    mesh (its block of the batch and of the noise); returns (its loss terms,
+    its gradients on the host)."""
+    import dataclasses
+
+    import torch
+
+    from humaniflow_torch.models import HumaniflowModel, synthetic_smpl
+    from humaniflow_torch.parallel import replicate, shard_batch
+    from humaniflow_torch.pipelines import make_optimizer, make_train_step
+
+    b, img, nj = 2, 64, 2
+    small = dataclasses.replace(cfg, LOSS=dataclasses.replace(cfg.LOSS, NUM_J2D_SAMPLES=nj))
+    model = HumaniflowModel(small.MODEL, generator=torch.Generator().manual_seed(51))
+    g = torch.Generator().manual_seed(52)
+    noise = (torch.randn((b, nj, 10), generator=g).cuda(),
+             [torch.randn((b, nj, len(p), 3), generator=g).cuda() for p in model.levels])
+    batch = _train_batch(b, img, 53, "cuda")
+    if mesh is not None:
+        replicate(model, mesh)
+        batch, noise = shard_batch((batch, noise), mesh)
+    step = make_train_step(model, synthetic_smpl(num_verts=V), small.LOSS, make_optimizer(model, small), img_wh=img,
+                           mesh=mesh)
+    metrics = step(batch, noise=noise)
+    return [{k: float(v) for k, v in metrics.items()}], {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+
+def _mesh_ssp3d(model, smpls, cfg, mesh):
+    """One SSP-3D batch (B=32, N=100, 256²) through evaluate_humaniflow,
+    in one process or on a mesh; returns (final metrics, launches)."""
+    import torch
+
+    from humaniflow_torch.pipelines import EVAL_METRICS_SSP3D, evaluate_humaniflow
+    from humaniflow_torch.utils.profiling import SyntheticEvalDataset
+
+    _zero_counts()
+    final = evaluate_humaniflow(model, *smpls, cfg, SyntheticEvalDataset(B, IMG), EVAL_METRICS_SSP3D, batch_size=B,
+                                num_pred_samples=N, renderer=_counting_renderer(img_wh=IMG, render_rgb=False),
+                                generator=torch.Generator("cuda").manual_seed(11), mesh=mesh)
+    return final, _read_counts()
+
+
+def _rank_setup(cfg):
+    """A rank's default model (seed 0, as phase 3's) and the three SMPL models."""
+    import torch
+
+    from humaniflow_torch.models import HumaniflowModel, synthetic_smpl
+
+    model = HumaniflowModel(cfg.MODEL, generator=torch.Generator().manual_seed(0))
+    return model, tuple(synthetic_smpl(num_verts=V, seed=s) for s in (0, 1, 2))
+
+
+def _pred_digest(pred):
+    """The outputs of a predict run that phase 16 holds (the samples' vertices
+    every tenth sample), on the host."""
+    out = {k: pred[k].cpu() for k in ("verts_point_est", "tpose_verts", "pose_rotmats_samples",
+                                      "vertex_uncertainty_l2", "vertex_uncertainty_directional")}
+    out["verts_samples"] = pred["verts_samples"][:, ::10].cpu()
+    return out
+
+
+def _gather_launches(launches):
+    """Every rank's launches by path, on every rank."""
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, launches)
+    return every
+
+
+def _mesh_rank_nccl(rank, device, cfg):
+    """Phase 16a, the one rank of an NCCL process group: predict on a 1-D and
+    a 1×1 mesh, the sharded inference program, one SSP-3D batch and
+    MESH_STEPS train steps, each at full width; then the mesh path's overhead
+    against the one-process path, in turns."""
+    import torch
+
+    from humaniflow_torch import parallel
+    from humaniflow_torch.pipelines import predict_humaniflow
+    from humaniflow_torch.utils.profiling import wall_ms
+
+    t0 = time.perf_counter()
+    model, smpls = _rank_setup(cfg)
+    smpl = smpls[0]
+    mesh, mesh11 = parallel.make_mesh(1), parallel.make_mesh_2d(1, 1)
+    parallel.replicate(model, mesh)
+    images, joints2d, conf = _inputs(B)
+    out, launches = {"predict": {}}, {}
+    for name, m in (("1-D", mesh), ("1x1", mesh11)):
+        _zero_counts()
+        pred = predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
+                                  generator=torch.Generator("cuda").manual_seed(7), mesh=m)
+        launches[f"predict, {name} mesh"] = _read_counts()
+        out["predict"][name] = _pred_digest(pred)
+    infer = parallel.make_sharded_inference_fn(model, smpl, mesh11, num_samples=N)
+    _zero_counts()
+    out["infer"] = [x.cpu() for x in infer(pred["proxy_rep"], generator=torch.Generator("cuda").manual_seed(7))]
+    launches["sharded inference, 1x1 mesh"] = _read_counts()
+    out["ssp3d"], launches["SSP-3D batch, 1-D mesh"] = _mesh_ssp3d(model, smpls, cfg, mesh)
+    out["train"], out["train_grads"], launches[f"train, {MESH_STEPS} steps, 1-D mesh"], (mesh_step, batch, gen) = \
+        _mesh_train(cfg, smpl, mesh, MESH_STEPS)
+    out["small_step"] = _mesh_small_step(cfg, mesh)
+    out["wall_s"] = time.perf_counter() - t0
+
+    plain_step = _mesh_train(cfg, smpl, None, 1)[3][0]
+    turns = {"one process": [], "1-D mesh": []}
+    for name in ("one process", "1-D mesh", "1-D mesh", "one process"):
+        m = mesh if name == "1-D mesh" else None
+        step = mesh_step if m is not None else plain_step
+        turns[name].append((
+            wall_ms(lambda: predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
+                                               generator=gen.manual_seed(8), mesh=m), 3),
+            wall_ms(lambda: step(batch, generator=gen), 3),
+        ))
+    out["turns"], out["launches"] = turns, _gather_launches(launches)
+    return out
+
+
+def _mesh_rank_gloo(rank, device, cfg):
+    """Phase 16b, a rank of 2 gloo ranks on the one card: the sample split of
+    distribution inference on a 1×2 mesh (K1 at (32, 50) on each rank), a
+    data-parallel train step at TRAIN_B (36 a rank) and one SSP-3D batch (16
+    a rank), each at full width."""
+    import torch
+
+    from humaniflow_torch import parallel
+    from humaniflow_torch.pipelines.predict import build_proxy_representation
+
+    t0 = time.perf_counter()
+    model, smpls = _rank_setup(cfg)
+    smpl = smpls[0]
+    mesh, mesh12 = parallel.make_mesh(2), parallel.make_mesh_2d(1, 2)
+    parallel.replicate(model, mesh)
+    images, joints2d, conf = (torch.as_tensor(a, device="cuda") for a in _inputs(B))
+    proxy = build_proxy_representation(images, joints2d, conf, cfg)
+    out, launches = {}, {}
+    infer = parallel.make_sharded_inference_fn(model, smpl, mesh12, num_samples=N)
+    _zero_counts()
+    out["infer"] = [x.cpu() for x in infer(proxy, generator=torch.Generator("cuda").manual_seed(7))]
+    launches["sample split, 1x2 mesh"] = _read_counts()
+    out["train"], out["train_grads"], launches["train step, 2 ranks"], _ = _mesh_train(cfg, smpl, mesh, 1)
+    out["small_step"] = _mesh_small_step(cfg, mesh)
+    out["ssp3d"], launches["SSP-3D batch, 2 ranks"] = _mesh_ssp3d(model, smpls, cfg, mesh)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = _gather_launches(launches)
+    return out
+
+
+def _hold_train(name, got, got_grads, want, want_grads, encoder_grads=True):
+    """A data-parallel run's train steps against the one-process ones: every
+    step's loss terms within LOSS_RTOL, the first step's gradients within
+    GRAD_RTOL of each tensor's largest, and every step finite and taken.
+    encoder_grads=False holds the gradients of the heads and flows only and
+    prints the encoder's: at B=72 from these random weights, the encoder's
+    BatchNorm backward is ill-conditioned in float32 (a channel whose
+    upstream gradient lies near the span of 1 and the normalised input
+    leaves a residual that any reordering of a sum moves by ~1e-2; on the
+    CPU, float32 BatchNorm itself misses float64 by 1e-2 there), so the
+    encoder is held at the small step instead (_mesh_small_step)."""
+    import math
+
+    terms = ("pose_nll", "shape_nll", "joints2D", "glob_rotmats", "total")
+    worst_loss = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got, want) for k in terms)
+    errs = {k: float((got_grads[k] - g).abs().max() / g.abs().max().clamp(min=1e-30)) for k, g in want_grads.items()}
+    held = {k: e for k, e in errs.items() if encoder_grads or not k.startswith("encoder.")}
+    worst_name = max(held, key=held.get)
+    line = (f"{name}: loss terms of {len(got)} step(s) within {worst_loss:.3e} relative, the first step's "
+            f"{'' if encoder_grads else 'head and flow '}gradients within {held[worst_name]:.3e} of each tensor's "
+            f"largest ({worst_name})")
+    if not encoder_grads:
+        enc = max((k for k in errs if k not in held), key=errs.get)
+        line += f"; the encoder's within {errs[enc]:.3e} ({enc}), not held here"
+    print(line)
+    if not (worst_loss <= LOSS_RTOL and held[worst_name] <= GRAD_RTOL):
+        raise AssertionError(f"{name} disagrees with the one-process step")
+    if not all(math.isfinite(m["total"]) and m["nan_skipped"] == 0.0 for m in got):
+        raise AssertionError(f"{name}: a step gave a non-finite loss or was skipped")
+
+
+def _hold_metrics(name, got, want):
+    worst = {m: abs(got[m] - w) / (1.0 if "IOU" in m else abs(w)) for m, w in want.items()}
+    print(f"{name}: metrics within {max(v for m, v in worst.items() if 'IOU' not in m):.3e} relative, IOU within "
+          f"{max(v for m, v in worst.items() if 'IOU' in m):.3e}")
+    bad = [m for m, v in worst.items() if v > (IOU_ATOL if "IOU" in m else METRIC_RTOL)]
+    if bad or set(got) != set(want):
+        raise AssertionError(f"{name} disagrees with the one-process batch: {bad}")
+
+
+def _hold_launches(name, every, needed):
+    for rank, launches in enumerate(every):
+        total = {k: sum(c[k] for c in launches.values()) for k in needed}
+        print(f"{name}, rank {rank}: " + "; ".join(f"{p} {c}" for p, c in launches.items()))
+        if not all(total.values()):
+            raise AssertionError(f"{name}: rank {rank} did not launch {[k for k, v in total.items() if not v]}")
+
+
+def multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, card, cli_files):
+    """Phase 16: the parallel layer on the card.  (a) NCCL at world size 1
+    (predict on a 1-D and a 1×1 mesh, the sharded inference program, one
+    SSP-3D batch, MESH_STEPS train steps) held to the one-process paths;
+    (b) 2 gloo ranks on the one card (the 1×2 sample split held to phase 4,
+    a train step and an SSP-3D batch held to one process); then the three
+    CLIs with --num_devices 1 on phase 15's files.  Returns the ranks'
+    launches by path."""
+    import torch
+
+    from humaniflow_torch import parallel
+
+    ref_ssp3d, _ = _mesh_ssp3d(model, smpls, cfg, None)
+    ref_train, ref_grads, _, _ = _mesh_train(cfg, smpls[0], None, MESH_STEPS)
+    ref_small = _mesh_small_step(cfg, None)
+    want_pred = _pred_digest(pred)
+    launches = {}
+
+    t0 = time.perf_counter()
+    a = parallel.spawn(_mesh_rank_nccl, 1, "cuda", cfg)
+    wall_a = time.perf_counter() - t0
+    for name, got in a["predict"].items():
+        diffs = {k: float((got[k] - w).abs().max()) for k, w in want_pred.items()}
+        print(f"16a predict on the {name} mesh (NCCL, 1 rank) vs phase 3, max abs diff: "
+              + ", ".join(f"{k} {d:.3e}" for k, d in diffs.items()))
+        if not all(d <= SLICE_ATOL for d in diffs.values()):
+            raise AssertionError(f"predict on the {name} mesh disagrees with phase 3")
+    for tag, (verts, var) in (("16a sharded inference, 1x1 mesh (NCCL)", a["infer"]),):
+        print(f"{tag} vs phase 4: vertices within {float((verts - verts_pe.cpu()).abs().max()):.3e} m, variance "
+              f"within {float((var - vertex_var.cpu()).abs().max()):.3e} m^2")
+        torch.testing.assert_close(verts, verts_pe.cpu(), rtol=0, atol=VERTS_ATOL)
+        torch.testing.assert_close(var, vertex_var.cpu(), rtol=VAR_RTOL, atol=VAR_ATOL)
+    _hold_metrics("16a SSP-3D batch, 1-D mesh (NCCL)", a["ssp3d"], ref_ssp3d)
+    _hold_train(f"16a {MESH_STEPS} train steps at B={TRAIN_B}, 1-D mesh (NCCL)", a["train"], a["train_grads"],
+                ref_train, ref_grads, encoder_grads=False)
+    _hold_train("16a train step at B=2, 64², 1-D mesh (NCCL)", *a["small_step"], *ref_small)
+    _hold_launches("16a launches", a["launches"], ("smpl_moments", "smpl_verts", "coverage", "raster"))
+    (p1, s1), (p2, s2) = (tuple(sum(x[i] for x in a["turns"][k]) / 2 for i in range(2))
+                          for k in ("one process", "1-D mesh"))
+    print(f"16a one process against the 1-D mesh at world size 1, in turns in the rank: predict B={B} N={N} "
+          f"{B / p1 * 1e3:.1f} against {B / p2 * 1e3:.1f} img/s ({p1:.2f} against {p2:.2f} ms), train step "
+          f"B={TRAIN_B} {s1:.2f} against {s2:.2f} ms (each turn's predict and step ms: {a['turns']})")
+
+    t0 = time.perf_counter()
+    b = parallel.spawn(_mesh_rank_gloo, 2, "cuda", cfg, backend="gloo")
+    wall_b = time.perf_counter() - t0
+    verts, var = b["infer"]
+    print(f"16b sample split, 1x2 mesh (gloo, 2 ranks, K1 at ({B}, {N // 2}) each) vs phase 4: vertices within "
+          f"{float((verts - verts_pe.cpu()).abs().max()):.3e} m, variance within "
+          f"{float((var - vertex_var.cpu()).abs().max()):.3e} m^2")
+    torch.testing.assert_close(verts, verts_pe.cpu(), rtol=0, atol=VERTS_ATOL)
+    torch.testing.assert_close(var, vertex_var.cpu(), rtol=VAR_RTOL, atol=VAR_ATOL)
+    _hold_train(f"16b train step at B={TRAIN_B} on 2 ranks ({TRAIN_B // 2} each, gloo)", b["train"],
+                b["train_grads"], ref_train[:1], ref_grads, encoder_grads=False)
+    _hold_train("16b train step at B=2, 64² on 2 ranks (1 each, gloo)", *b["small_step"], *ref_small)
+    _hold_metrics(f"16b SSP-3D batch on 2 ranks ({B // 2} each, gloo)", b["ssp3d"], ref_ssp3d)
+    _hold_launches("16b launches", b["launches"], ("smpl_moments", "smpl_verts", "coverage", "raster"))
+    for tag, every in (("16a", a["launches"]), ("16b", b["launches"])):
+        for rank, per_path in enumerate(every):
+            launches.update({f"{tag} rank {rank}: {p}": c for p, c in per_path.items()})
+    print(f"16a NCCL, 1 rank: {wall_a:.1f} s wall ({a['wall_s']:.1f} s in the rank before its timing turns); 16b gloo, "
+          f"2 ranks on one card: {wall_b:.1f} s wall ({b['wall_s']:.1f} s in rank 0); {card}")
+    mesh_clis(cli_files)
     return launches
+
+
+def mesh_clis(cli_files):
+    """Phase 16c: the predict (--num_devices 1 --sample_devices 1), evaluate
+    (3DPW, --num_devices 1) and train (-D 1) CLIs, each spawning its rank,
+    on phase 15's files laid out as configs/paths.py finds them through
+    HUMANIFLOW_MODEL_FILES and HUMANIFLOW_DATA; the evaluation's per-frame
+    metrics held to phase 15c's one-process files."""
+    import math
+    import pickle
+
+    import cv2
+    import numpy as np
+
+    from humaniflow_torch.cli import run_evaluate, run_predict, run_train
+    from humaniflow_torch.configs import paths
+
+    root, ckpt = cli_files
+    layout = {
+        **{os.path.join("model_files", "smpl", f"SMPL_{g}.npz"): os.path.join(root, f"SMPL_{g}.npz")
+           for g in ("NEUTRAL", "MALE", "FEMALE")},
+        **{os.path.join("model_files", os.path.basename(f)): f
+           for f in (paths.J_REGRESSOR_EXTRA, paths.COCOPLUS_REGRESSOR, paths.H36M_REGRESSOR, paths.DENSEPOSE_UV)},
+        os.path.join("data", "3dpw", "test"): os.path.join(root, "3dpw"),
+        os.path.join("data", "ssp_3d"): os.path.join(root, "ssp3d"),
+    }
+    for split in ("train", "val"):
+        layout[os.path.join("data", "training", f"smpl_{split}_poses.npz")] = os.path.join(root, split, "poses.npz")
+        layout[os.path.join("data", "training", f"smpl_{split}_textures.npz")] = os.path.join(root, split,
+                                                                                             "textures.npz")
+        layout[os.path.join("data", "training", "lsun_backgrounds", split)] = os.path.join(root, split, "backgrounds")
+    for link, target in layout.items():
+        link = os.path.join(root, "layout", link)
+        os.makedirs(os.path.dirname(link), exist_ok=True)
+        os.symlink(target, link)
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    for i, img in enumerate(_uncropped_images(4, seed=101)):
+        cv2.imwrite(os.path.join(images, f"u{i}.png"), (img[..., ::-1] * 255).astype(np.uint8))
+    saved = {k: os.environ.get(k) for k in ("HUMANIFLOW_MODEL_FILES", "HUMANIFLOW_DATA")}
+    os.environ["HUMANIFLOW_MODEL_FILES"] = os.path.join(root, "layout", "model_files")
+    os.environ["HUMANIFLOW_DATA"] = os.path.join(root, "layout", "data")
+    wall = {}
+    try:
+        t0 = time.perf_counter()
+        out = os.path.join(root, "predict_mesh")
+        run_predict.main(["-I", images, "-S", out, "-C", ckpt, "-N", str(N), "--num_devices", "1",
+                          "--sample_devices", "1"])
+        wall["predict"] = time.perf_counter() - t0
+        preds = [np.load(os.path.join(out, f)) for f in sorted(os.listdir(out))]
+        if len(preds) != 4 or not all(np.isfinite(d[k]).all() for d in preds for k in d.files):
+            raise AssertionError(f"predict CLI --num_devices 1 wrote {sorted(os.listdir(out))}, or non-finite values")
+
+        t0 = time.perf_counter()
+        out = os.path.join(root, "eval_3dpw_mesh")
+        run_evaluate.main(["-D", "3dpw", "-C", ckpt, "-B", str(B), "-N", "10", "-S", out, "--num_devices", "1"])
+        wall["evaluate"] = time.perf_counter() - t0
+        worst = 0.0
+        for f in os.listdir(os.path.join(root, "eval_3dpw")):
+            want, got = np.load(os.path.join(root, "eval_3dpw", f)), np.load(os.path.join(out, f))
+            if want.dtype.kind in "US":
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"evaluate CLI --num_devices 1: {f} differs")
+                continue
+            worst = max(worst, float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)))
+        if not worst <= METRIC_RTOL:
+            raise AssertionError(f"evaluate CLI --num_devices 1: per-frame metrics off phase 15c's by {worst}")
+
+        t0 = time.perf_counter()
+        exp = os.path.join(root, "experiment_mesh")
+        run_train.main(["-E", exp, "--cull", "-O", "TRAIN.NUM_EPOCHS", "1", "-D", "1"])
+        wall["train"] = time.perf_counter() - t0
+        with open(os.path.join(exp, "log.pkl"), "rb") as f:
+            history = pickle.load(f)
+        if not os.path.exists(os.path.join(exp, "epoch_000000.pt")) or not all(
+                math.isfinite(history[k][-1]) for k in ("train_losses", "val_losses", "val_PVE-SC")):
+            raise AssertionError(f"train CLI -D 1 wrote {sorted(os.listdir(exp))} or a non-finite loss")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"16c CLIs with --num_devices 1 (one NCCL rank each): predict N={N} 4 images {wall['predict']:.1f} s, "
+          f"evaluate 3DPW B={B} N=10 {wall['evaluate']:.1f} s (per-frame metrics within {worst:.3e} of phase 15c's), "
+          f"train 1 epoch at B={TRAIN_B} {wall['train']:.1f} s (train loss {history['train_losses'][-1]:.2f}); "
+          "wall times with each rank's start")
 
 
 def main() -> int:
@@ -2254,7 +2688,12 @@ def _main() -> int:
 
     # ---- phase 15: the flow menu, then the train and evaluate CLIs
     path_launches.update(flow_menu(smpl, cfg, proxy, train_timings))
-    path_launches.update(train_and_evaluate_clis(train_timings))
+    with tempfile.TemporaryDirectory() as cli_root:
+        cli_launches, ckpt = train_and_evaluate_clis(train_timings, cli_root)
+        path_launches.update(cli_launches)
+
+        # ---- phase 16: the parallel layer (NCCL at world size 1, 2 gloo ranks on the card, the CLIs' flags)
+        path_launches.update(multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, card, (cli_root, ckpt)))
     print(f"launches by path: {path_launches}")
 
     # ---- profiler measurements, last: a profiler session leaves the host

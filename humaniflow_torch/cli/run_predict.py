@@ -1,7 +1,8 @@
 """Prediction on a directory of uncropped images (reference scripts/run_predict.py).
 
     python -m humaniflow_torch.cli.run_predict -I images/ -S out/ \\
-        -C humaniflow_weights.tar --hrnet_checkpoint pose_hrnet_w48_384x288.pth
+        -C humaniflow_weights.tar --hrnet_checkpoint pose_hrnet_w48_384x288.pth \\
+        [--num_devices 4 [--sample_devices 2]]
 
 Person box (optional torchvision detector, else the whole image refined by
 the keypoint-box fallback) → HRNet-W48 keypoints → the square crop of the
@@ -14,12 +15,18 @@ composite onto the original image `_uncrop.png` and the per-vertex variance
 scatter `_xyz_variance.png`.  Runs on CUDA unless --device names another
 device; without checkpoints it warns and uses seeded random weights.
 Images are read and written with OpenCV.  Setting HFT_FUSED_LEVEL=1 runs
-the flow through the fused level kernel.
+the flow through the fused level kernel.  --num_devices N runs distribution
+inference on N ranks, one process a device (NCCL on CUDA, gloo on the CPU;
+parallel/), each on its block of the images; with --sample_devices S as
+well, the ranks form a (N / S, S) ("data", "sample") mesh whose "sample"
+axis splits the N-sample SMPL stage.  The HRNet stage, the crops, the files
+and the figures run on rank 0.
 """
 
 import argparse
 import math
 import os
+import sys
 
 
 def main(argv=None):
@@ -51,32 +58,60 @@ def main(argv=None):
     parser.add_argument("--visualise_uncropped", "-VU", action="store_true")
     parser.add_argument("--visualise_xyz_variance", "-VXYZ", action="store_true")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="data-parallel inference on N ranks, one a device (a 1-D data mesh); default one "
+                             "process")
+    parser.add_argument("--sample_devices", type=int, default=None,
+                        help="split the N-sample SMPL stage over S devices (a 2-D (data, sample) mesh, data axis "
+                             "num_devices // S; parallel/sample_parallel.py).  Needs --num_devices divisible by S "
+                             "and --num_samples divisible by S")
     args = parser.parse_args(argv)
 
-    import numpy as np
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if not args.num_devices:
+        return _predict(args, device)
+    if args.sample_devices and args.sample_devices > 1:
+        assert args.num_devices % args.sample_devices == 0, "--num_devices must be divisible by --sample_devices"
+
+    from ..parallel import spawn
+
+    if device.type == "cuda":
+        from ..utils.cuda_build import build_all
+
+        build_all()  # once, here: the ranks load the built kernels
+    return spawn(_predict_rank, args.num_devices, device.type, args)
+
+
+def _predict_rank(rank, device, args):
+    from ..parallel import make_mesh, make_mesh_2d
+
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    s = args.sample_devices or 1
+    mesh = make_mesh_2d(args.num_devices // s, s) if s > 1 else make_mesh(args.num_devices)
+    _predict(args, device, mesh)
+
+
+def _predict(args, device, mesh=None):
     import torch
 
     from ..configs import load_config, paths
-    from ..data.image_ops import batch_crop_affine
     from ..models import HumaniflowModel, load_smpl_npz
-    from ..models.hrnet import PoseHighResolutionNet
-    from ..pipelines import predict_hrnet as ph
+    from ..parallel import replicate
     from ..pipelines.predict import predict_humaniflow
-    from ..utils.device import resolve_device
-    from ..utils.load_reference import load_hrnet_checkpoint, load_humaniflow_checkpoint
+    from ..utils.load_reference import load_humaniflow_checkpoint
 
-    device = resolve_device(args.device)
+    is_root = mesh is None or torch.distributed.get_rank() == 0
     cfg = load_config(args.cfg)
     model = HumaniflowModel(cfg.MODEL, device=device)
     if args.checkpoint:
         load_humaniflow_checkpoint(args.checkpoint, model)
     else:
         print("WARNING: no checkpoint given, using random init")
-    hrnet = PoseHighResolutionNet(dtype=torch.bfloat16 if args.hrnet_dtype == "bf16" else None, device=device)
-    if args.hrnet_checkpoint:
-        load_hrnet_checkpoint(args.hrnet_checkpoint, hrnet)
-    else:
-        print("WARNING: no HRNet checkpoint, using random init")
+    if mesh is not None:
+        replicate(model, mesh)
     smpl_path = {"neutral": paths.SMPL_NEUTRAL, "male": paths.SMPL_MALE, "female": paths.SMPL_FEMALE}[args.gender]
     smpl = load_smpl_npz(
         smpl_path,
@@ -85,8 +120,48 @@ def main(argv=None):
         device=device,
     )
 
-    import cv2
+    fnames, hr, crop = _hrnet_crops(args, cfg, device) if is_root else (None, None, None)
+    if mesh is not None:  # rank 0's crops to every rank, through the host
+        moved = lambda d, dev: {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in d.items()}  # noqa: E731
+        crops = [(fnames, moved(hr, "cpu"), moved(crop, "cpu")) if is_root else None]
+        torch.distributed.broadcast_object_list(crops, src=0)
+        fnames, hr, crop = crops[0][0], moved(crops[0][1], device), moved(crops[0][2], device)
+    n = len(fnames)
+    pred = predict_humaniflow(
+        model, smpl, cfg, crop["rgb"], crop["joints2d"], hr["joints2Dconfs"], num_samples=args.num_samples,
+        save_dir=args.save_dir, fnames=fnames,
+        extras={"bbox_centre": hr["bbox_centres"], "bbox_height": hr["bbox_heights"],
+                "bbox_width": hr["bbox_widths"], "hrnet_joints2D": hr["joints2D"]},
+        joints2d_visib_threshold=args.joints2Dvisib_threshold, device=device, mesh=mesh,
+    )
+    if not is_root:
+        return
+    print(f"Saved predictions for {n} images to {args.save_dir}")
+    vis_samples = args.visualise or args.visualise_samples
+    vis_uncrop = args.visualise or args.visualise_uncropped
+    vis_xyz = args.visualise or args.visualise_xyz_variance
+    if args.visualise or vis_samples or vis_uncrop or vis_xyz:
+        _visualise(args, cfg, pred, crop["rgb"], hr, fnames, vis_samples, vis_uncrop, vis_xyz, device)
 
+
+def _hrnet_crops(args, cfg, device):
+    """HRNet keypoints of the images of -I, then the square centre crop of
+    each HRNet crop at the proxy size: (file names, the HRNet outputs, the
+    crops)."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from ..data.image_ops import batch_crop_affine
+    from ..models.hrnet import PoseHighResolutionNet
+    from ..pipelines import predict_hrnet as ph
+    from ..utils.load_reference import load_hrnet_checkpoint
+
+    hrnet = PoseHighResolutionNet(dtype=torch.bfloat16 if args.hrnet_dtype == "bf16" else None, device=device)
+    if args.hrnet_checkpoint:
+        load_hrnet_checkpoint(args.hrnet_checkpoint, hrnet)
+    else:
+        print("WARNING: no HRNet checkpoint, using random init")
     os.makedirs(args.save_dir, exist_ok=True)
     fnames = sorted(f for f in os.listdir(args.image_dir) if f.endswith((".png", ".jpg", ".jpeg")))
     raw_images = [
@@ -97,8 +172,6 @@ def main(argv=None):
         hrnet, raw_images, use_torchvision_detector=args.use_detector and not args.cropped_images,
         keypoint_bbox_fallback=not args.cropped_images, device=device,
     )
-
-    # the square centre crop of each HRNet crop, at the proxy size
     n, wh = len(fnames), cfg.DATA.PROXY_REP_SIZE
     in_w, in_h = ph.HRNET_INPUT_WH
     side = max(in_w, in_h)
@@ -108,19 +181,7 @@ def main(argv=None):
         bbox_heights=torch.full((n,), float(side), device=device),
         bbox_widths=torch.full((n,), float(side), device=device), orig_scale_factor=1.0,
     )
-    pred = predict_humaniflow(
-        model, smpl, cfg, crop["rgb"], crop["joints2d"], hr["joints2Dconfs"], num_samples=args.num_samples,
-        save_dir=args.save_dir, fnames=fnames,
-        extras={"bbox_centre": hr["bbox_centres"], "bbox_height": hr["bbox_heights"],
-                "bbox_width": hr["bbox_widths"], "hrnet_joints2D": hr["joints2D"]},
-        joints2d_visib_threshold=args.joints2Dvisib_threshold, device=device,
-    )
-    print(f"Saved predictions for {n} images to {args.save_dir}")
-    vis_samples = args.visualise or args.visualise_samples
-    vis_uncrop = args.visualise or args.visualise_uncropped
-    vis_xyz = args.visualise or args.visualise_xyz_variance
-    if args.visualise or vis_samples or vis_uncrop or vis_xyz:
-        _visualise(args, cfg, pred, crop["rgb"], hr, fnames, vis_samples, vis_uncrop, vis_xyz, device)
+    return fnames, hr, crop
 
 
 def _visualise(args, cfg, pred, images, hr, fnames, vis_samples, vis_uncrop, vis_xyz, device):

@@ -1,7 +1,7 @@
 """Synthetic-data training (reference scripts/run_train.py).
 
     python -m humaniflow_torch.cli.run_train -E experiments/run1 [-P all] \\
-        [--cfg train.yaml] [-O TRAIN.BATCH_SIZE 72 ...] [-R EPOCH] [--no-cull]
+        [--cfg train.yaml] [-O TRAIN.BATCH_SIZE 72 ...] [-R EPOCH] [--no-cull] [-D 4]
 
 Samples poses, textures and LSUN backgrounds from the training files under
 the data directory (configs/paths.py; HUMANIFLOW_DATA), renders the
@@ -11,18 +11,19 @@ TRAIN.EPOCHS_PER_SAVE epochs into -E.  The experiment's config is frozen on
 the first run; `-R EPOCH` resumes from that epoch's checkpoint with the
 frozen config and this run's -O on top.  The SMPL model is the converted
 SMPL_NEUTRAL.npz (cli/convert_model_files.py).  Runs on CUDA unless
---device names another device.  Training on several devices (the JAX CLI's
--D/--num_devices) is not ported yet.
+--device names another device.  -D N trains data-parallel on N ranks, one
+process a device (NCCL on CUDA, gloo on the CPU; parallel/): each rank
+takes TRAIN.BATCH_SIZE / N of every batch, which N must divide, and rank 0
+writes the files.
 """
 
 import argparse
 import os
+import sys
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog="Training on several devices (the JAX CLI's -D/--num_devices) is not ported yet.")
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--experiment_dir", "-E", type=str, required=True)
     parser.add_argument("--pose_params_from", "-P", type=str, default="all",
                         choices=["all", "h36m", "up3d", "3dpw", "amass", "not_amass"])
@@ -30,17 +31,16 @@ def main(argv=None):
     parser.add_argument("--cfg", type=str, default=None, help="yaml overrides of the default config")
     parser.add_argument("--cfg_overrides", "-O", nargs="*", default=[],
                         help="dotted-path overrides, KEY VALUE pairs (e.g. TRAIN.BATCH_SIZE 72)")
+    parser.add_argument("--num_devices", "-D", type=int, default=None,
+                        help="data-parallel training on N ranks, one a device (a 1-D data mesh); "
+                             "default one process")
     parser.add_argument("--cull", default=True, action=argparse.BooleanOptionalAction,
                         help="back-face-cull the synthetic-data renders (exact for closed, consistently wound "
                              "meshes such as SMPL's); --no-cull for meshes that self-intersect")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    from ..configs import load_config, paths, save_config
-    from ..data.datasets import OnTheFlySMPLTrainDataset
-    from ..models import HumaniflowModel, load_smpl_npz
-    from ..pipelines.train import make_training_renderer, train_humaniflow
-    from ..utils.checkpoints import load_checkpoint
+    from ..configs import load_config, save_config
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -51,6 +51,32 @@ def main(argv=None):
     else:
         cfg = load_config(args.cfg, args.cfg_overrides)
         save_config(cfg, frozen_cfg_path)
+    if not args.num_devices:
+        return _train(args, cfg, device)
+
+    from ..parallel import spawn
+
+    if device.type == "cuda":
+        from ..utils.cuda_build import build_all
+
+        build_all()  # once, here: the ranks load the built kernels
+    return spawn(_train_rank, args.num_devices, device.type, args, cfg)
+
+
+def _train_rank(rank, device, args, cfg):
+    from ..parallel import make_mesh
+
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    _train(args, cfg, device, mesh=make_mesh(args.num_devices))
+
+
+def _train(args, cfg, device, mesh=None):
+    from ..configs import paths
+    from ..data.datasets import OnTheFlySMPLTrainDataset
+    from ..models import HumaniflowModel, load_smpl_npz
+    from ..pipelines.train import make_training_renderer, train_humaniflow
+    from ..utils.checkpoints import load_checkpoint
 
     datasets = [
         OnTheFlySMPLTrainDataset(poses_path=poses, textures_path=textures, backgrounds_dir_path=backgrounds,
@@ -73,7 +99,8 @@ def main(argv=None):
     resume_state = None
     if args.resume_epoch is not None:
         resume_state = load_checkpoint(os.path.join(args.experiment_dir, f"epoch_{args.resume_epoch:06d}"))
-    return train_humaniflow(model, smpl, cfg, renderer, *datasets, args.experiment_dir, resume_state=resume_state)
+    return train_humaniflow(model, smpl, cfg, renderer, *datasets, args.experiment_dir, resume_state=resume_state,
+                            mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -16,23 +16,45 @@ from .label_conversions import TWENTYFOUR_PART_SEG_TO_COCO_JOINTS_MAP
 
 class Draws:
     """The source of every random number of the synthetic-data path: a
-    torch.Generator, on the device the numbers are made on."""
+    torch.Generator, on the device the numbers are made on.
 
-    def __init__(self, generator: torch.Generator):
+    With shard=(rank, world), a rank of a data-parallel run holds 1/world of
+    the batch: each draw's leading axis is its block of a batch world times
+    as long, so the rank draws the whole batch's numbers (of the shape that
+    one process would draw) and returns its block.  A draw whose leading
+    axis is not the batch's is taken through `whole()`, which draws it as
+    it is on every rank."""
+
+    def __init__(self, generator: torch.Generator, shard=None):
         self.generator = generator
+        self.shard = shard
+
+    def whole(self) -> "Draws":
+        """The same source without the shard: for draws shared by the batch."""
+        return Draws(self.generator)
+
+    def _draw(self, make, shape):
+        shape = tuple(shape)
+        if self.shard is None:
+            return make(shape)
+        rank, world = self.shard
+        b = shape[0]
+        return make((b * world,) + shape[1:])[rank * b:(rank + 1) * b]
 
     def normal(self, shape) -> torch.Tensor:
         """Standard normal float32 of `shape`."""
-        return torch.randn(tuple(shape), generator=self.generator, device=self.generator.device)
+        return self._draw(lambda s: torch.randn(s, generator=self.generator, device=self.generator.device), shape)
 
     def uniform(self, shape, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
         """Uniform float32 in [lo, hi) of `shape`."""
-        u = torch.rand(tuple(shape), generator=self.generator, device=self.generator.device)
+        u = self._draw(lambda s: torch.rand(s, generator=self.generator, device=self.generator.device), shape)
         return u * (hi - lo) + lo
 
     def randint(self, shape, lo: int, hi: int) -> torch.Tensor:
         """Uniform int64 in [lo, hi) of `shape`."""
-        return torch.randint(lo, hi, tuple(shape), generator=self.generator, device=self.generator.device)
+        return self._draw(
+            lambda s: torch.randint(lo, hi, s, generator=self.generator, device=self.generator.device), shape
+        )
 
 
 # ---------------------------------------------------------------- SMPL shape

@@ -175,15 +175,26 @@ class FlowBatchNorm(nn.Module):
         ld = torch.sum(torch.log(std) - self.log_gamma[parts], dim=-1)
         return x, ld.expand(y.shape[:-1])
 
+    group = None  # a process group: the batch statistics are the whole batch's over its ranks
+
     @torch.no_grad()
     def update_stats(self, y):
         """The training-mode inverse of every part: moves the running
         statistics towards the batch's (mean, unbiased variance over every
         leading axis of y (..., num_parts, D)) in place, and returns y
-        normalised with the batch statistics."""
+        normalised with the batch statistics.  With `group`, the statistics
+        are those of the whole batch over the group's ranks (equal blocks):
+        the unbiased divisor is the global count less one."""
         axes = tuple(range(y.dim() - 2))
-        mean = torch.mean(y, dim=axes)
-        var = torch.var(y, dim=axes, correction=1)
+        if self.group is None:
+            mean = torch.mean(y, dim=axes)
+            var = torch.var(y, dim=axes, correction=1)
+        else:
+            from ..parallel.mesh import all_reduce_sum
+
+            count = y[..., 0, 0].numel() * torch.distributed.get_world_size(self.group)
+            mean = all_reduce_sum(y.sum(dim=axes), self.group) / count
+            var = all_reduce_sum(((y - mean) ** 2).sum(dim=axes), self.group) / (count - 1)
         m = self.momentum
         self.moving_mean.copy_((1.0 - m) * self.moving_mean + m * mean)
         self.moving_var.copy_((1.0 - m) * self.moving_var + m * var)

@@ -15,15 +15,21 @@ import torch
 from ..configs.defaults import LossConfig
 
 
-def _masked_mse(pred, target, mask):
+def _masked_mse(pred, target, mask, group=None):
     """MSELoss(mean) over the rows of pred / target (..., K, D) that mask
-    (..., K) selects."""
+    (..., K) selects.  With a process group, the count of selected rows is
+    the whole batch's over its ranks, divided by their number: the mean of
+    the ranks' terms is then the whole batch's term."""
     se = torch.sum((pred - target) ** 2, dim=-1)
-    count = torch.clamp(torch.sum(mask) * pred.shape[-1], min=1.0)
-    return torch.sum(se * mask) / count
+    count, ranks = torch.sum(mask), 1
+    if group is not None:
+        from ..parallel.mesh import all_reduce_sum
+
+        count, ranks = all_reduce_sum(count.clone(), group), torch.distributed.get_world_size(group)
+    return torch.sum(se * mask) / (torch.clamp(count * pred.shape[-1], min=1.0) / ranks)
 
 
-def humaniflow_loss(loss_cfg: LossConfig, img_wh: int, pred: Dict, target: Dict):
+def humaniflow_loss(loss_cfg: LossConfig, img_wh: int, pred: Dict, target: Dict, group=None):
     """The total training loss and its terms.
 
     pred: pose_log_probs (B, 23); shape_mode, shape_log_std (B, nb);
@@ -33,6 +39,10 @@ def humaniflow_loss(loss_cfg: LossConfig, img_wh: int, pred: Dict, target: Dict)
     target: shape_params (B, nb); joints2D (B, K, 2) pixels; joints2D_vis
       (B, K); glob_rotmats (B, 3, 3); verts, joints3D with
       APPLY_POINT_EST_LOSS.
+    group: for a rank of a data-parallel step, the process group over which
+      the visible-joint count is the whole batch's (every other term is a
+      mean over equal blocks), so that the mean of the ranks' losses is the
+      whole batch's loss.
     :return: (total, {term: value, ..., "total": total}).
     """
     b, num_parts = pred["pose_log_probs"].shape
@@ -49,7 +59,7 @@ def humaniflow_loss(loss_cfg: LossConfig, img_wh: int, pred: Dict, target: Dict)
 
     t_j2d = ((2.0 * target["joints2D"]) / img_wh - 1.0)[:, None].expand(pred["joints2D"].shape)
     vis = target["joints2D_vis"][:, None].expand(pred["joints2D"].shape[:-1]).to(torch.float32)
-    joints2d_loss = _masked_mse(pred["joints2D"], t_j2d, vis)
+    joints2d_loss = _masked_mse(pred["joints2D"], t_j2d, vis, group)
 
     glob_loss = torch.mean((pred["glob_rotmats"] - target["glob_rotmats"]) ** 2)
 

@@ -231,6 +231,17 @@ class HumaniflowModel(nn.Module):
             for parts in self.levels
         ]
 
+    def draw_noise(self, b: int, num_samples: int, generator: torch.Generator, use_shape_mode_for_samples: bool):
+        """(shape_noise (b, N, nb) or None, base_noise [per level (b, N, P, 3)])
+        drawn from `generator` in the order in which apply draws them for a
+        batch of b (parallel ranks draw the whole batch's noise and keep their
+        block)."""
+        shape_noise = None
+        if not use_shape_mode_for_samples:
+            shape_noise = torch.randn((b, num_samples, self.cfg.NUM_SMPL_BETAS), generator=generator,
+                                      device=self.device)
+        return shape_noise, self._draw_level_noise((b, num_samples), generator)
+
     # --------------------------------------------------------------- forward
     def apply(
         self,

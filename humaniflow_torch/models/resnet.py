@@ -43,14 +43,34 @@ class BatchNorm(nn.BatchNorm2d):
     running_var with the unbiased batch variance, flax with the biased one
     (the variance it normalises with).  Train mode normalises with the batch
     statistics (F.batch_norm) and updates the running statistics itself,
-    outside autograd."""
+    outside autograd.
+
+    With a process group in `group` (a data-parallel train step sets it),
+    the train-mode statistics are those of the whole batch over the group's
+    ranks, as under JAX's GSPMD: the mean and the biased variance come from
+    a differentiable all-reduce of Σx and then of Σ(x − mean)², two passes
+    for float32 accuracy; every rank holds an equal block."""
+
+    group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if self.group is None:
+            out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        else:
+            from ..parallel.mesh import AllReduceSum
+
+            count = x.numel() // x.shape[1] * torch.distributed.get_world_size(self.group)
+            mean = AllReduceSum.apply(x.sum(dim=(0, 2, 3)), self.group) / count
+            centred = x - mean[None, :, None, None]
+            var = AllReduceSum.apply((centred * centred).sum(dim=(0, 2, 3)), self.group) / count
+            scale = self.weight * torch.rsqrt(var + self.eps)
+            out = centred * scale[None, :, None, None] + self.bias[None, :, None, None]
+            mean, var = mean.detach(), var.detach()
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(FLAX_MOMENTUM).add_(mean, alpha=1.0 - FLAX_MOMENTUM)
             self.running_var.mul_(FLAX_MOMENTUM).add_(var, alpha=1.0 - FLAX_MOMENTUM)
         return out

@@ -1,12 +1,14 @@
 """Distribution-aware evaluation on SSP-3D and 3DPW.
 
-The PyTorch counterpart of `humaniflow_tpu/pipelines/evaluate.py` on one
-device: proxy construction (Canny edges + heatmaps from the dataset's
+The PyTorch counterpart of `humaniflow_tpu/pipelines/evaluate.py`: proxy
+construction (Canny edges + heatmaps from the dataset's
 keypoints), the N-sample forward, gendered SMPL targets (male forward,
 female overwrite by the gender mask), neutral-SMPL predictions (point
 estimate, T-pose and every sample, through kernel K2), 2D projections with
 the x-flip camera convention, silhouettes through the renderer (kernel K3
-on CUDA), `EvalMetricsTracker` accumulation and per-frame `.npy` dumps.
+on CUDA), `EvalMetricsTracker` accumulation and per-frame `.npy` dumps.  With a
+device mesh (parallel/) each rank evaluates its block of every batch and
+rank 0 tracks the gathered results.
 """
 
 import math
@@ -18,6 +20,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.defaults import HumaniflowConfig
 from ..data.datasets import batch_iterator
@@ -35,6 +38,7 @@ from ..models.smpl import SMPLModel, smpl_forward
 from ..ops.camera import orthographic_project
 from ..ops.rotation import aa_rotate_rotmats
 from ..ops.so3 import so3_exp
+from ..parallel.mesh import DATA_AXIS, all_gather_tree, axis_group, axis_size, pad_batch_to_devices, shard_batch
 from ..utils.device import resolve_device
 
 _H36M_J14 = [ALL_JOINTS_TO_H36M_MAP[i] for i in H36M_TO_J14]
@@ -235,6 +239,7 @@ def evaluate_humaniflow(
     prefetch: bool = True,
     pre_stage: bool = False,
     device=None,
+    mesh=None,
 ):
     """Full evaluation loop; returns the final metrics {name: float}.
 
@@ -258,6 +263,13 @@ def evaluate_humaniflow(
         so that the loop's times exclude host→device copies.
     :param device: default CUDA; raises if CUDA is unavailable.  The model,
         the SMPL models and the renderer must live there.
+    :param mesh: optional DeviceMesh (parallel/), on which every rank calls
+        this with the same dataset and noise: each batch is padded with zeros
+        to the "data" axis and sharded over it, each rank runs the eval step
+        and renders the silhouettes (K3) of its block, with its block of the
+        whole batch's noise, and the blocks are gathered in frame order and
+        trimmed to the batch for rank 0's tracker.  Rank 0 alone writes
+        files; every rank returns rank 0's final metrics.
     """
     device = resolve_device(device)
     for name, obj in (("model", model), ("smpl_neutral", smpl_neutral), ("smpl_male", smpl_male),
@@ -273,8 +285,9 @@ def evaluate_humaniflow(
     eval_step = _build_eval_step(
         model, smpl_neutral, smpl_male, smpl_female, cfg, num_pred_samples, compute_samples, compute_joints2d,
     )
+    is_root = mesh is None or dist.get_rank() == 0
     tracker = EvalMetricsTracker(
-        metrics, save_path=save_path, save_per_frame_metrics=save_per_frame_metrics,
+        metrics, save_path=save_path if is_root else None, save_per_frame_metrics=save_per_frame_metrics and is_root,
         num_samples_for_prob_metrics=num_pred_samples if compute_samples else None, sync_every=sync_every,
     )
     if generator is None and noise_fn is None:
@@ -322,18 +335,21 @@ def evaluate_humaniflow(
         if noise_fn is not None:
             shape_noise, level_noise = noise_fn(batch_index, b, num_pred_samples)
             noise = (put(shape_noise), [put(z) for z in level_noise])
-        pred, target, proxy, extra = eval_step(prepared["dev_batch"], noise=noise, generator=generator)
+        dev_batch = prepared["dev_batch"]
+        if mesh is not None:
+            # the whole batch's noise, padded with the batch; this rank's block of both
+            if noise is None and compute_samples:
+                noise = model.draw_noise(b, num_pred_samples, generator, use_shape_mode_for_samples=False)
+            (dev_batch, noise), _ = pad_batch_to_devices((dev_batch, noise), axis_size(mesh, DATA_AXIS))
+            dev_batch, noise = shard_batch((dev_batch, noise), mesh)
+        pred, target, proxy, extra = eval_step(dev_batch, noise=noise, generator=generator)
 
-        if compute_joints2d and prepared["joints2D"] is not None:
-            target["joints2D"] = prepared["joints2D"]
-            if prepared["joints2D_visib"] is not None:
-                target["joints2D_vis"] = prepared["joints2D_visib"]
-        if compute_silhouettes and renderer is not None and prepared["silhouette"] is not None:
+        render_silhouettes = compute_silhouettes and renderer is not None and prepared["silhouette"] is not None
+        if render_silhouettes:
             with torch.inference_mode():
                 sil, ov = renderer.render_silhouette_with_overflow(extra["verts_flipped_point_est"], extra["cam_wp"])
             overflow_batch = ov.sum()
             pred["silhouettes"] = sil
-            target["silhouettes"] = prepared["silhouette"]
             if compute_sil_samples and compute_samples:
                 # every one of the B·N samples, seen by its image's
                 # point-estimate camera
@@ -341,12 +357,29 @@ def evaluate_humaniflow(
                     renderer, pred["verts3D_samples"], extra["cam_wp"], chunk=silhouette_sample_chunk,
                 )
                 overflow_batch = overflow_batch + ov_s
+        if mesh is not None:
+            # the ranks' blocks in frame order, the padded rows dropped (as JAX: trim, then accumulate)
+            pred, target, proxy, extra, overflow = all_gather_tree(
+                (pred, target, proxy, extra, overflow_batch[None] if render_silhouettes else None),
+                axis_group(mesh, DATA_AXIS),
+            )
+            pred, target, extra = ({k: v[:b] for k, v in t.items()} for t in (pred, target, extra))
+            proxy = proxy[:b]
+            if render_silhouettes:
+                overflow_batch = overflow.sum()
+        if render_silhouettes and is_root:
+            target["silhouettes"] = prepared["silhouette"]
             sil_overflow_pending = (
                 overflow_batch if sil_overflow_pending is None else sil_overflow_pending + overflow_batch
             )
+        if compute_joints2d and prepared["joints2D"] is not None:
+            target["joints2D"] = prepared["joints2D"]
+            if prepared["joints2D_visib"] is not None:
+                target["joints2D_vis"] = prepared["joints2D_visib"]
 
-        with torch.inference_mode():
-            tracker.update_per_batch(pred, target, b, model_input=proxy)
+        if is_root:
+            with torch.inference_mode():
+                tracker.update_per_batch(pred, target, b, model_input=proxy)
         if tracker.pending_batches == 0 and sil_overflow_pending is not None:
             # the tracker has just copied to the host: read the count too
             ov = int(sil_overflow_pending)
@@ -361,7 +394,7 @@ def evaluate_humaniflow(
                 )
         if batch_times is not None:
             batch_times.append(time.perf_counter() - t0)
-        if save_per_frame_metrics:
+        if save_per_frame_metrics and is_root:
             fname_list.extend(prepared["fnames"])
             pose_list.append(extra["pose_rotmats_point_est"])
             shape_list.append(extra["shape_mode"])
@@ -384,7 +417,13 @@ def evaluate_humaniflow(
             "TexturedIUVRenderer(silhouette_exact=True)."
         )
 
+    if not is_root:
+        final = [None]
+        dist.broadcast_object_list(final, src=0)
+        return final[0]
     final_metrics = tracker.compute_final_metrics(num_verts=smpl_neutral.num_verts)
+    if mesh is not None:
+        dist.broadcast_object_list([final_metrics], src=0)
 
     if save_per_frame_metrics and save_path is not None:
         os.makedirs(save_path, exist_ok=True)

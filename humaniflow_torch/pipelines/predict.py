@@ -1,10 +1,12 @@
 """Prediction pipeline: cropped image → proxy → distribution inference → SMPL
 meshes, per-vertex uncertainty and prediction dumps.
 
-The PyTorch counterpart of `humaniflow_tpu/pipelines/predict.py` on one
-device: Canny + heatmap proxy build, the N-sample forward with the point
-estimate as sample 0, SMPL (kernel K2) for the point estimate, the T-pose and
-every sample, and the per-vertex variance.
+The PyTorch counterpart of `humaniflow_tpu/pipelines/predict.py`: Canny +
+heatmap proxy build, the N-sample forward with the point estimate as sample
+0, SMPL (kernel K2) for the point estimate, the T-pose and every sample, and
+the per-vertex variance.  With a device mesh (parallel/) each rank runs its
+data block of the batch, the B·N sample SMPL stage splits over both axes of
+a ("data", "sample") mesh, and every rank ends with the whole batch.
 """
 
 import os
@@ -18,6 +20,7 @@ from ..data.label_conversions import convert_2d_joints_to_gaussian_heatmaps
 from ..models.canny import CannyEdgeDetector
 from ..models.humaniflow import HumaniflowModel
 from ..models.smpl import SMPLModel, smpl_forward
+from ..parallel.mesh import DATA_AXIS, all_gather_tree, axis_group, axis_size, pad_batch_to_devices, shard_batch
 from ..utils.device import resolve_device
 from ..utils.sampling import compute_vertex_variance_from_samples
 
@@ -59,21 +62,42 @@ def make_predict_fn(
     num_samples: int = 50,
     use_shape_mode_for_samples: bool = True,
     device=None,
+    mesh=None,
 ):
     """proxy (B, wh, wh, 18) → full distribution-inference outputs.
 
     :param device: default CUDA (raises if unavailable); model and smpl must
         already live there.
+    :param mesh: optional DeviceMesh (parallel/).  A 1-D "data" mesh shards
+        the batch, which must divide its size; a 2-D ("data", "sample") mesh
+        (parallel.make_mesh_2d) also splits the flat B·N sample SMPL stage
+        over both axes: rank (d, s) runs flat block d·S + s.  Every rank
+        passes the whole proxy and the same noise, and gets the whole batch.
     :return: predict(proxy, generator=None, base_noise=None) → dict; the
-        noise arguments are those of HumaniflowModel.apply.
+        noise arguments are those of HumaniflowModel.apply, for the whole
+        batch.
     """
     device = resolve_device(device)
     for name, dev in (("model", model.device), ("smpl", smpl.device)):
         if dev.type != device.type or (device.index is not None and dev.index != device.index):
             raise ValueError(f"{name} lives on {dev}, not on {device}")
 
+    sample_shards = 1 if mesh is None else axis_size(mesh, "sample")
+    if sample_shards > 1:
+        assert num_samples % sample_shards == 0, (
+            f"num_samples={num_samples} must divide the sample axis ({sample_shards})"
+        )
+    data_group = None if mesh is None else axis_group(mesh, DATA_AXIS)
+
     @torch.inference_mode()
     def predict(proxy, generator: Optional[torch.Generator] = None, base_noise: Optional[List] = None):
+        shape_noise = None
+        if mesh is not None:
+            # the whole batch's noise, then this rank's data block of it and of the proxy
+            if base_noise is None:
+                shape_noise, base_noise = model.draw_noise(proxy.shape[0], num_samples, generator,
+                                                           use_shape_mode_for_samples)
+            proxy, base_noise, shape_noise = shard_batch((proxy, list(base_noise), shape_noise), mesh)
         out = model.apply(
             proxy,
             generator=generator,
@@ -81,6 +105,7 @@ def make_predict_fn(
             use_shape_mode_for_samples=use_shape_mode_for_samples,
             return_input_feats=True,
             base_noise=base_noise,
+            shape_noise=shape_noise,
         )
         b = proxy.shape[0]
         pe = smpl_forward(smpl, out["shape_mode"], out["pose_rotmats_point_est"], out["glob_rotmat"])
@@ -88,16 +113,16 @@ def make_predict_fn(
         tpose = smpl_forward(smpl, out["shape_mode"], eye.expand(b, 23, 3, 3), eye.expand(b, 3, 3))
 
         n = num_samples
-        flat = smpl_forward(
-            smpl,
+        flat_in = (
             out["shape_samples"].reshape(b * n, -1),
             out["pose_rotmats_samples"].reshape(b * n, 23, 3, 3),
             out["glob_rotmat"][:, None].expand(b, n, 3, 3).reshape(b * n, 3, 3),
         )
-        nv = flat["vertices"].shape[1]
-        verts_samples = flat["vertices"].reshape(b, n, nv, 3)
-        avg_l2, directional_std = compute_vertex_variance_from_samples(verts_samples)
-        return {
+        if sample_shards > 1:
+            # this rank's block of the data block's b·N rows: flat block d·S + s of B·N
+            flat_in = shard_batch(flat_in, mesh, "sample")
+        flat = smpl_forward(smpl, *flat_in)
+        pred = {
             "cam_wp": out["cam_wp"],
             "glob_rotmat": out["glob_rotmat"],
             "shape_mode": out["shape_mode"],
@@ -110,11 +135,24 @@ def make_predict_fn(
             "verts_point_est": pe["vertices"],
             "joints_point_est": pe["joints"],
             "tpose_verts": tpose["vertices"],
-            "verts_samples": verts_samples,
-            "joints_samples": flat["joints"].reshape(b, n, -1, 3),
-            "vertex_uncertainty_l2": avg_l2,
-            "vertex_uncertainty_directional": directional_std,
         }
+        flat_out = {"vertices": flat["vertices"], "joints": flat["joints"]}
+        if mesh is not None:
+            # the ranks of one "sample" line hold the same rows; the flat
+            # blocks are in rank order (d·S + s) over the whole group
+            pred = all_gather_tree(pred, data_group)
+            flat_out = all_gather_tree(flat_out, data_group if sample_shards == 1 else torch.distributed.group.WORLD)
+            b = pred["cam_wp"].shape[0]
+        nv = flat_out["vertices"].shape[1]
+        verts_samples = flat_out["vertices"].reshape(b, n, nv, 3)
+        avg_l2, directional_std = compute_vertex_variance_from_samples(verts_samples)
+        pred.update(
+            verts_samples=verts_samples,
+            joints_samples=flat_out["joints"].reshape(b, n, -1, 3),
+            vertex_uncertainty_l2=avg_l2,
+            vertex_uncertainty_directional=directional_std,
+        )
+        return pred
 
     return predict
 
@@ -153,6 +191,7 @@ def predict_humaniflow(
     joints2d_visib_threshold: float = 0.75,
     device=None,
     base_noise: Optional[List] = None,
+    mesh=None,
 ) -> Dict:
     """Batched prediction over pre-cropped images.
 
@@ -162,6 +201,12 @@ def predict_humaniflow(
     :param generator: sampling noise; default a generator on `device` seeded
         with 0.  :param base_noise: explicit per-level noise instead.
     :param device: default CUDA; raises if CUDA is unavailable.
+    :param mesh: optional DeviceMesh (parallel/), on which every rank calls
+        this with the same inputs: the proxy is padded with zeros to the
+        "data" axis only (on a 2-D mesh "sample" splits N, not B) and each
+        rank predicts its block; the noise is drawn for the B real images,
+        so the result is the one-process result.  Every rank gets the whole
+        batch; rank 0 alone writes the files.
     """
     device = resolve_device(device)
     as_t = lambda a: torch.as_tensor(a if isinstance(a, torch.Tensor) else np.asarray(a), device=device)  # noqa: E731
@@ -170,12 +215,19 @@ def predict_humaniflow(
         None if joints2d_conf is None else as_t(joints2d_conf), cfg,
         joints2d_visib_threshold=joints2d_visib_threshold,
     )
-    predict = make_predict_fn(model, smpl, cfg, num_samples=num_samples, device=device)
+    predict = make_predict_fn(model, smpl, cfg, num_samples=num_samples, device=device, mesh=mesh)
     if generator is None and base_noise is None:
         generator = torch.Generator(device).manual_seed(0)
-    pred = predict(proxy, generator, base_noise)
+    if mesh is None:
+        pred = predict(proxy, generator, base_noise)
+    else:
+        b = proxy.shape[0]
+        if base_noise is None:
+            _, base_noise = model.draw_noise(b, num_samples, generator, use_shape_mode_for_samples=True)
+        (padded, base_noise), _ = pad_batch_to_devices((proxy, list(base_noise)), axis_size(mesh, DATA_AXIS))
+        pred = {k: v[:b] for k, v in predict(padded, None, base_noise).items()}
     pred["proxy_rep"] = proxy
-    if save_dir is not None and fnames is not None:
+    if save_dir is not None and fnames is not None and (mesh is None or torch.distributed.get_rank() == 0):
         all_extras = {"cropped_image": images, "cropped_joints2D": joints2d, "proxy_rep": proxy}
         if joints2d_conf is not None:
             all_extras["hrnet_joints2D_conf"] = joints2d_conf

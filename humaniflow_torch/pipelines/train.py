@@ -13,7 +13,9 @@ train/train_humaniflow.py):
   device, packed one vector per step, and are fetched once per epoch with
   the render's overflow count; the best parameters are tracked and a
   checkpoint is written every EPOCHS_PER_SAVE epochs, from which a run
-  resumes.
+  resumes.  On a device mesh each rank trains on its block of every batch
+  (the synthetic data's randomness drawn for the whole batch) and rank 0
+  writes the files.
 """
 
 import math
@@ -21,6 +23,7 @@ import os
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..configs.defaults import HumaniflowConfig
 from ..data.augmentation import (
@@ -47,6 +50,7 @@ from ..models.smpl import SMPLModel, smpl_forward
 from ..ops.camera import perspective_project
 from ..ops.rotation import aa_rotate_rotmats, aa_rotate_translate_points
 from ..ops.so3 import so3_exp
+from ..parallel.mesh import DATA_AXIS, all_reduce_sum, axis_group, axis_rank, axis_size, replicate, shard_batch
 from ..utils.checkpoints import load_training_info_from_checkpoint, save_checkpoint
 from .train_step import make_train_step
 
@@ -109,12 +113,13 @@ def make_synth_data_fn(cfg: HumaniflowConfig, smpl: SMPLModel, renderer):
                                                  zero3)
         j2d = perspective_project(joints_coco, None, cam_t, focal_length=sd.FOCAL_LENGTH, img_wh=img_wh)
         j2d_vis = check_joints2d_visibility(j2d, img_wh)
+        # one light for the whole batch: drawn whole on every rank of a data-parallel run
         lights = augment_light_colour(
-            draws, 1, ambient_intensity_range=aug.RGB.LIGHT_AMBIENT_RANGE,
+            draws.whole(), 1, ambient_intensity_range=aug.RGB.LIGHT_AMBIENT_RANGE,
             diffuse_intensity_range=aug.RGB.LIGHT_DIFFUSE_RANGE,
             specular_intensity_range=aug.RGB.LIGHT_SPECULAR_RANGE,
         )
-        lights["location"] = augment_light_t(draws, 1, aug.RGB.LIGHT_LOC_RANGE)
+        lights["location"] = augment_light_t(draws.whole(), 1, aug.RGB.LIGHT_LOC_RANGE)
         render = renderer(verts_render, cam_t=cam_t, textures=texture, lights_rgb_settings=lights)
         iuv, rgb = render["iuv_images"], render["rgb_images"]
 
@@ -175,6 +180,7 @@ def train_humaniflow(
     num_epochs: Optional[int] = None,
     steps_per_epoch: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ):
     """The epoch loop (reference train_humaniflow.py:94-407) on the model's
     device.  The datasets' `epoch_batches(batch_size)` yield dicts of pose
@@ -184,13 +190,29 @@ def train_humaniflow(
     number of the run.  resume_state is a checkpoint dict
     (utils/checkpoints.py::load_checkpoint).
 
+    mesh: a DeviceMesh (parallel/) on whose "data" axis the batch is split;
+    every rank calls this with the same datasets and generator state.  The
+    model and the optimizer's state are broadcast from rank 0, each rank
+    takes its block of every host batch, and only rank 0 writes checkpoints
+    and log.pkl.  Raises ValueError if TRAIN.BATCH_SIZE does not divide the
+    mesh's device count.
+
     :return: (the model's final state_dict, the best epoch's state_dict).
     """
     os.makedirs(experiment_dir, exist_ok=True)
     device = model.device
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
-    draws = Draws(generator)
+    shard, is_root = None, True
+    if mesh is not None:
+        n_dev = mesh.size()
+        if bsz_check := (cfg.TRAIN.BATCH_SIZE % n_dev):
+            raise ValueError(
+                f"TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} must divide the "
+                f"mesh device count {n_dev} (remainder {bsz_check})"
+            )
+        shard, is_root = (axis_rank(mesh, DATA_AXIS), axis_size(mesh, DATA_AXIS)), dist.get_rank() == 0
+    draws = Draws(generator, shard=shard)
     if optimizer is None:
         optimizer = make_optimizer(model, cfg)
 
@@ -202,16 +224,22 @@ def train_humaniflow(
         )
         model.load_state_dict(resume_state["params"])
         optimizer.load_state_dict(resume_state["opt_state"])
-    best = model.state_dict() if resume_state is None else resume_state.get("best_params", model.state_dict())
-    best_params = {k: v.detach().clone() for k, v in best.items()}
 
     synth_batch = make_synth_data_fn(cfg, smpl, renderer)
     step = make_train_step(model, smpl, cfg.LOSS, optimizer, img_wh=cfg.DATA.PROXY_REP_SIZE,
-                           emit_metric_tensors=bool(metrics_to_track))
+                           emit_metric_tensors=bool(metrics_to_track), mesh=mesh)
+    if mesh is not None:  # after the step has made Adam's state
+        replicate(model, mesh)
+        replicate(optimizer, mesh)
+    best = model.state_dict() if resume_state is None else resume_state.get("best_params", model.state_dict())
+    best_params = {k: v.detach().clone() for k, v in best.items()}
     tracker = TrainingLossesAndMetricsTracker(
         metrics_to_track, cfg.DATA.PROXY_REP_SIZE, log_save_path=os.path.join(experiment_dir, "log.pkl"),
         load_logs=resume_state is not None, current_epoch=current_epoch,
     )
+    if not is_root:
+        tracker.log_save_path = None  # the history is read on resume, written by rank 0
+    n_ranks = 1 if shard is None else shard[1]
 
     num_epochs = num_epochs or cfg.TRAIN.NUM_EPOCHS
     bsz = cfg.TRAIN.BATCH_SIZE
@@ -221,6 +249,8 @@ def train_humaniflow(
         overflow = torch.zeros((), dtype=torch.int64, device=device)
         for split, dataset in (("train", train_dataset), ("val", val_dataset)):
             for step_count, host_batch in enumerate(dataset.epoch_batches(bsz), start=1):
+                if mesh is not None:
+                    host_batch = shard_batch(host_batch, mesh)
                 inputs = [torch.as_tensor(host_batch[k], device=device) for k in ("pose", "texture", "background")]
                 batch = synth_batch(draws, *inputs)
                 batch.pop("rgb_in")
@@ -231,20 +261,23 @@ def train_humaniflow(
                 mt = metrics.pop("metric_tensors", None)
                 if mt is not None and metrics_to_track:
                     vals = tracker.batch_sums_device(
-                        metrics["total"],
+                        metrics["total"] / n_ranks,
                         {"verts3D": mt["pred_verts3D"], "joints3D": mt["pred_joints3D"],
                          "joints2D": mt["pred_joints2D"]},
                         {"verts3D": mt["target_verts3D"], "joints3D": mt["target_joints3D"],
                          "joints2D": batch["joints2D"], "joints2D_vis": batch["joints2D_vis"]},
                     )
                 else:
-                    vals = {"loss": metrics["total"], "sums": {}}
+                    vals = {"loss": metrics["total"] / n_ranks, "sums": {}}
                 pending.append((split, *flatten_sums(vals)))
                 if steps_per_epoch is not None and step_count >= steps_per_epoch:
                     break
         if pending:
             # one fetch per epoch: the packed scalars of every step and the overflow count
-            flat = torch.cat([vec for _, _, vec in pending] + [overflow.to(torch.float32)[None]]).cpu().tolist()
+            flat = torch.cat([vec for _, _, vec in pending] + [overflow.to(torch.float32)[None]])
+            if mesh is not None:  # the ranks' sums (each rank's loss is the whole batch's over n_ranks)
+                flat = all_reduce_sum(flat, axis_group(mesh, DATA_AXIS))
+            flat = flat.cpu().tolist()
             if flat[-1] > 0:
                 print(f"WARNING: the synthetic-data render dropped {int(flat[-1])} faces this epoch "
                       f"(vertex indices out of range)")
@@ -260,7 +293,7 @@ def train_humaniflow(
                 best_epoch_val_metrics[m] = tracker.epochs_history[f"val_{m}"][-1]
             best_params = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
-        if epoch % cfg.TRAIN.EPOCHS_PER_SAVE == 0:
+        if epoch % cfg.TRAIN.EPOCHS_PER_SAVE == 0 and is_root:
             save_checkpoint(experiment_dir, f"epoch_{epoch:06d}", {
                 "epoch": epoch,
                 "best_epoch": best_epoch,

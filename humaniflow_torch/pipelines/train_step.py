@@ -17,19 +17,32 @@ SMPL runs through kernel K2 with its gradient (models/cuda_lbs.py
 `SMPLVerts`), so the joints-2D loss reaches the shape and the sampled
 rotations.  The fused flow level (HFT_FUSED_LEVEL=1) has no backward, and the
 model refuses it under grad mode.
+
+Data parallel (a device mesh): each rank steps on its block of the batch, as
+JAX's GSPMD run does on one global batch.  The encoder's and the flow's
+BatchNorm statistics and the visible-joint count of the loss are the whole
+batch's (collectives over "data"), each rank takes its block of the whole
+batch's noise, and after the backward one all-reduce averages the flat
+gradient together with the loss terms, so that the norm, the finiteness gate
+and Adam decide the same on every rank.  No DDP wrapper: it would need
+find_unused_parameters for the flow BatchNorm's parameters and would hide
+the order of the collectives.
 """
 
+import contextlib
 from typing import Dict, List, Optional
 
 import torch
 
 from ..configs.defaults import LossConfig
 from ..data.label_conversions import ALL_JOINTS_TO_COCO_MAP, ALL_JOINTS_TO_H36M_MAP, H36M_TO_J14
+from ..flows.autoregressive import FlowBatchNorm
 from ..losses.humaniflow_loss import humaniflow_loss
 from ..models.humaniflow import HumaniflowModel
-from ..models.resnet import fp32_convolutions
+from ..models.resnet import BatchNorm, fp32_convolutions
 from ..models.smpl import SMPLModel, smpl_forward
 from ..ops.camera import orthographic_project
+from ..parallel.mesh import DATA_AXIS, all_reduce_sum, axis_group, shard_batch
 
 _H36M_J14 = [ALL_JOINTS_TO_H36M_MAP[i] for i in H36M_TO_J14]
 
@@ -62,8 +75,24 @@ def init_adam_state(optimizer: torch.optim.Adam):
                 state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
+@contextlib.contextmanager
+def batch_stats_over(model: torch.nn.Module, group):
+    """Within the block, the model's train-mode BatchNorm statistics (the
+    encoder's, and the flow BatchNorm update's) are the whole batch's over
+    the ranks of `group`."""
+    layers = [m for m in model.modules() if isinstance(m, (BatchNorm, FlowBatchNorm))]
+    for m in layers:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.group = None
+
+
 def make_train_step(model: HumaniflowModel, smpl: SMPLModel, loss_cfg: LossConfig, optimizer: torch.optim.Optimizer,
-                    img_wh: int = 256, num_j2d_samples: Optional[int] = None, emit_metric_tensors: bool = False):
+                    img_wh: int = 256, num_j2d_samples: Optional[int] = None, emit_metric_tensors: bool = False,
+                    mesh=None):
     """The train step closure `train_step(batch, generator=None, noise=None,
     update=True) -> metrics`.
 
@@ -78,6 +107,11 @@ def make_train_step(model: HumaniflowModel, smpl: SMPLModel, loss_cfg: LossConfi
     metrics: the loss terms and "total", "grad_norm" and "nan_skipped" (with
     update), and with emit_metric_tensors "metric_tensors": point-estimate
     and target vertices and joints for the tracker.  All device tensors.
+
+    mesh: a DeviceMesh (parallel/) whose "data" axis splits the batch: each
+    rank passes its block (and the generator state of every rank, or its
+    block of the noise); the loss terms returned are the whole batch's, the
+    metric tensors the rank's rows.
     """
     n_samples = loss_cfg.NUM_J2D_SAMPLES if num_j2d_samples is None else num_j2d_samples
     use_point_est = "point_est" in loss_cfg.J2D_LOSS_ON
@@ -86,6 +120,8 @@ def make_train_step(model: HumaniflowModel, smpl: SMPLModel, loss_cfg: LossConfi
     if isinstance(optimizer, torch.optim.Adam):
         init_adam_state(optimizer)
     bn_buffers = [b for k, b in model.encoder.named_buffers() if k.endswith(("running_mean", "running_var"))]
+    group = None if mesh is None else axis_group(mesh, DATA_AXIS)
+    world = 1 if group is None else torch.distributed.get_world_size(group)
 
     def _metric_tensors(out, batch):
         pe = smpl_forward(smpl, out["shape_mode"], out["pose_rotmats_point_est"], out["glob_rotmat"])
@@ -119,7 +155,7 @@ def make_train_step(model: HumaniflowModel, smpl: SMPLModel, loss_cfg: LossConfi
             "shape_params": batch["shape"], "joints2D": batch["joints2D"], "joints2D_vis": batch["joints2D_vis"],
             "glob_rotmats": batch["glob_rotmats"],
         }
-        total, breakdown = humaniflow_loss(loss_cfg, img_wh, pred, target)
+        total, breakdown = humaniflow_loss(loss_cfg, img_wh, pred, target, group=group)
         metrics = {k: v.detach() for k, v in breakdown.items()}
         if emit_metric_tensors:
             with torch.no_grad():
@@ -128,11 +164,32 @@ def make_train_step(model: HumaniflowModel, smpl: SMPLModel, loss_cfg: LossConfi
             metrics["metric_tensors"] = mt
         return total, metrics, out["pose_flow_contexts_for_loglik"].detach()
 
-    def train_step(batch: Dict, generator: Optional[torch.Generator] = None, noise=None, update: bool = True):
+    def mean_over_ranks(metrics, grads=()):
+        """The ranks' mean of the loss terms, and of the flat gradient if
+        given (copied back into the gradients), in one all-reduce."""
+        names = [k for k in metrics if k != "metric_tensors"]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [torch.stack([metrics[k] for k in names])])
+        flat = all_reduce_sum(flat, group) / world
+        off = 0
+        views = []
+        for g in grads:
+            views.append(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        if grads:
+            torch._foreach_copy_(list(grads), views)
+        metrics.update(zip(names, flat[off:].unbind()))
+
+    def step(batch, generator, noise, update):
+        if group is not None and noise is None and use_samples:
+            # the whole batch's noise, drawn as one process draws it; this rank's block
+            shape_noise, base_noise = model.draw_noise(batch["proxy"].shape[0] * world, n_samples, generator, False)
+            noise = shard_batch((shape_noise, base_noise), mesh)
         saved_bn = [b.clone() for b in bn_buffers]
         if not update:
             with torch.no_grad():
                 _, metrics, _ = loss_fn(batch, generator, noise)
+                if group is not None:
+                    mean_over_ranks(metrics)
             torch._foreach_copy_(bn_buffers, saved_bn)
             return metrics
         optimizer.zero_grad(set_to_none=True)
@@ -142,6 +199,9 @@ def make_train_step(model: HumaniflowModel, smpl: SMPLModel, loss_cfg: LossConfi
         for p in params:  # optax updates every parameter, zero gradients included
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if group is not None:
+            mean_over_ranks(metrics, [p.grad for p in params])
+            loss = metrics["total"]
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm([p.grad for p in params])))
         ok = torch.isfinite(loss.detach()) & torch.isfinite(gnorm)
         if bool(ok):
@@ -153,5 +213,11 @@ def make_train_step(model: HumaniflowModel, smpl: SMPLModel, loss_cfg: LossConfi
         metrics["grad_norm"] = gnorm
         metrics["nan_skipped"] = (~ok).to(torch.float32)
         return metrics
+
+    def train_step(batch: Dict, generator: Optional[torch.Generator] = None, noise=None, update: bool = True):
+        if group is None:
+            return step(batch, generator, noise, update)
+        with batch_stats_over(model, group):
+            return step(batch, generator, noise, update)
 
     return train_step

@@ -70,6 +70,9 @@ class ReplayDraws:
     def randint(self, shape, lo, hi):
         return self._next(shape).to(torch.int64)
 
+    def whole(self):
+        return self
+
 
 @pytest.fixture
 def record(monkeypatch):
