@@ -54,7 +54,8 @@ Phases, each of which raises on failure (exit code != 0):
    infinite coordinates; indices out of range), printing its tile plan, and
    time it at the training batch; hold K2's forward against its twin at every row
    count the paths give it (32, 72, 320, 576, 3,200, 3,232; a rank's 16, 36,
-   288 and 1,600 on phase 16's paths) and at ragged ones (1, 17, 33),
+   288 and 1,600 on phase 16's paths; 184, 179, 131, 14 and 140 on phase
+   17's) and at ragged ones (1, 17, 33),
    printing the tile forward_plan picks for each, and time it at the
    paths' shapes (CUDA events and the kernel's device time); hold
    K2 with its gradient (the backward kernel, then float32 products)
@@ -113,10 +114,22 @@ Phases, each of which raises on failure (exit code != 0):
    B=72 (36 a rank) and an SSP-3D batch (16 a rank) held to one process;
    K1, K2, K3 and K4 launched on every rank; (c) the predict, evaluate and
    train CLIs with --num_devices 1 (--sample_devices 1, -D 1) on phase
-   15's files, the evaluation's per-frame metrics held to phase 15c's.
+   15's files, the evaluation's per-frame metrics held to phase 15c's;
+17. data preparation to evaluation: a 3DPW test release fabricated at the
+   real one's layout and size (tests/_torch_pw3d.py: 1080×1920 JPEG frames,
+   a 200-frame sequence with two people and a missing image, a 137-frame
+   one, invalid frames, f = 1,960 px) through cli/pw3d_preprocess.py on the
+   card (K2 once a person, at 184, 179 and 131 rows) held to the same CLI
+   on the CPU on the short sequence (labels, orientations, box corners,
+   crops and 2D joints) and K2 at 131 rows held to its one-row launches bit
+   for bit; cli/generate_hrnet_keypoints.py on its 494 crops (HRNet-W48 at
+   384×288, B=16, float32, phase 10's damped weights from a
+   reference-layout .pth) held to the CPU on 2 frames; then
+   cli/run_evaluate.py -D 3dpw (N=10) on the prepared directory with phase
+   15's checkpoint (finite per-frame metrics); frames/s of both CLIs.
 
 Phases 1-7 and 11-14 run with the fused level off.  Each path of phases 3, 4,
-6, 7, 9, 10, 11, 14, 15 and 16 (in each rank) is driven with the kernel
+6, 7, 9, 10, 11, 14, 15, 16 (in each rank) and 17 is driven with the kernel
 launch counters set to 0 just before it and read just after; launches made to compare a
 kernel with its twin, or to time it, are not counted.  Last, torch.profiler
 counts the kernel launches of one call of K2's backward and takes the
@@ -126,6 +139,7 @@ kernels' own device ms (K1 and K4 beside their bounds).  Prints one
 package beside it, it exits non-zero and prints no result.
 """
 
+import importlib
 import json
 import os
 import subprocess
@@ -168,6 +182,21 @@ OPT_LOSS_RTOL = 2e-4  # GPU vs CPU optimise: loss terms
 TIE_SHARE = 1e-3  # tiled vs exact-scan figures: pixels whose colours differ (ties), of the covered pixels
 VIS_SAMPLES = 18  # J2D-sorted samples rendered (the reference's 3×6 grid)
 UNCROPPED_SIZES = ((480, 640), (720, 540))  # (H, W) of the synthetic uncropped images
+# phase 17: a fabricated 3DPW test release at the real frames' size, camera and layout (tests/_torch_pw3d.py):
+# a sequence of 200 frames with two people and one missing image, one of 137 frames with one person, some
+# frames of each person invalid (the longer sequence cut from 400 frames: the host takes 34-50 ms a frame)
+PW3D_FRAME_WH, PW3D_FOCAL = (1080, 1920), 1960.0
+PW3D_SEQUENCES = (
+    {"name": "downtown_walkUphill_00", "frames": 200, "missing": (100,),
+     "people": (("m", tuple(range(50, 65))), ("f", (*range(10), *range(190, 200))))},
+    {"name": "office_phoneCall_00", "frames": 137, "people": (("f", tuple(range(0, 137, 25))),)},
+)
+PW3D_CPU_SEQUENCE = "office_phoneCall_00"  # the sequence the card's preprocessing is held to the CPU's on
+PW3D_ROT_ATOL = 1e-5  # card vs CPU: the rotations each side logs
+PW3D_LOG_ATOL = 2e-3  # each side's orientation against the rotation it logs (tests/test_torch_scripts_pw3d.py)
+PW3D_J2D_ATOL = 1e-2  # card vs CPU 2D joints, px
+PW3D_CORNER_ATOL = 5e-2  # card vs CPU box corners before rounding, px
+PW3D_CLEAR_SHARE = 0.9  # frames held crop for crop: at least this share
 
 
 def _bound_ms(flops, nbytes):
@@ -504,11 +533,11 @@ def ssp3d_split(model, smpls, cfg, renderer):
 
     from humaniflow_torch.metrics import EvalMetricsTracker
     from humaniflow_torch.pipelines import EVAL_METRICS_SSP3D
-    from humaniflow_torch.pipelines.evaluate import _build_eval_step, _render_sample_silhouettes
+    from humaniflow_torch.pipelines.evaluate import _render_sample_silhouettes, make_eval_step
     from humaniflow_torch.utils.profiling import SyntheticEvalDataset, cuda_ms, staged_batch
 
     batch = staged_batch(SyntheticEvalDataset(B, IMG), B, "cuda")
-    eval_step = _build_eval_step(model, *smpls, cfg, N, True, True)
+    eval_step = make_eval_step(model, *smpls, cfg, N, True, True)
     gen = torch.Generator("cuda")
     pred, target, proxy, extra = eval_step(batch, generator=gen.manual_seed(13))
     with torch.inference_mode():
@@ -576,7 +605,7 @@ def check_eval_against_cpu(model, smpls, cfg):
 
     from humaniflow_torch.models import HumaniflowModel
     from humaniflow_torch.pipelines import EVAL_METRICS_SSP3D, evaluate_humaniflow
-    from humaniflow_torch.pipelines.evaluate import _build_eval_step, _render_sample_silhouettes
+    from humaniflow_torch.pipelines.evaluate import _render_sample_silhouettes, make_eval_step
     from humaniflow_torch.render import TexturedIUVRenderer
     from humaniflow_torch.utils.profiling import SyntheticEvalDataset, staged_batch
 
@@ -595,7 +624,7 @@ def check_eval_against_cpu(model, smpls, cfg):
         finals[dev] = evaluate_humaniflow(mdl, *sm, cfg64, ds, EVAL_METRICS_SSP3D, batch_size=b, num_pred_samples=n,
                                           renderer=renderer, noise_fn=lambda i, bb, nn: noise[i], device=dev)
         batch = staged_batch(ds, b, dev)
-        step = _build_eval_step(mdl, *sm, cfg64, n, True, True)
+        step = make_eval_step(mdl, *sm, cfg64, n, True, True)
         pred, _, _, extra = step(batch, noise=tuple([noise[0][0].to(dev), [z.to(dev) for z in noise[0][1]]]))
         with torch.inference_mode():
             pe = renderer.render_silhouette(extra["verts_flipped_point_est"], extra["cam_wp"]).bool()
@@ -803,7 +832,7 @@ def uncropped_predict(model, smpl, cfg, hrnet, images, seed):
 
     from humaniflow_torch.data.image_ops import batch_crop_affine
     from humaniflow_torch.pipelines import predict_humaniflow
-    from humaniflow_torch.pipelines import predict_hrnet as ph
+    ph = importlib.import_module("humaniflow_torch.pipelines.predict_hrnet")  # the module, not the function
 
     passes = []
     handle = hrnet.register_forward_hook(lambda m, a, o: passes.append(1))
@@ -973,17 +1002,33 @@ def check_raster(smpl):
     )
 
 
-# K2's forward rows on the paths, then a rank's on phase 16b's (point estimates of 16 eval images, 36
-# training images and their 288 joint samples, 1,600 eval samples)
-FORWARD_ROWS = (B, TRAIN_B, 10 * B, TRAIN_B * TRAIN_NJ, B * N, B * (N + 1),
-                B // 2, TRAIN_B // 2, TRAIN_B * TRAIN_NJ // 2, B * N // 2)
+def _pw3d_rows():
+    """K2's rows in phase 17's pw3d_preprocess: each person's valid frames
+    with an image, one call a person (tests/_torch_pw3d.py::smpl_rows)."""
+    return tuple(_pw3d_helpers().smpl_rows(PW3D_SEQUENCES))
+
+
+def _forward_rows():
+    """K2's forward rows on the paths, then a rank's on phase 16b's (point
+    estimates of 16 eval images, 36 training images and their 288 joint
+    samples, 1,600 eval samples), then phase 17's: one call a person in
+    pw3d_preprocess, and the evaluate CLI's last batch of the prepared
+    frames (and its 10 samples each)."""
+    pw3d = _pw3d_rows()
+    tail = sum(pw3d) % B
+    return (B, TRAIN_B, 10 * B, TRAIN_B * TRAIN_NJ, B * N, B * (N + 1),
+            B // 2, TRAIN_B // 2, TRAIN_B * TRAIN_NJ // 2, B * N // 2,
+            *pw3d, tail, 10 * tail)
+
+
 RAGGED_ROWS = (1, 17, 33)
 
 
 def check_smpl_verts_plans(smpl, record):
     """Phase 11b: K2's forward against its twin at every row count the paths
     give it (32 optimise and point estimates, 72 training, 320 3DPW samples,
-    576 training samples, 3,200 predict samples, 3,232 the SSP-3D eval step)
+    576 training samples, 3,200 predict samples, 3,232 the SSP-3D eval step,
+    a rank's on phase 16's paths, phase 17's people and last eval batch)
     and at ragged ones, each through the tile forward_plan picks (printed);
     its time at the paths' shapes (CUDA events) beside the bound; added to
     K2's record."""
@@ -994,7 +1039,8 @@ def check_smpl_verts_plans(smpl, record):
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
-    for rows in sorted(FORWARD_ROWS + RAGGED_ROWS):
+    forward_rows = _forward_rows()
+    for rows in sorted(forward_rows + RAGGED_ROWS):
         args = _kernel_args(smpl, (rows,), V, seed=rows)
         plan = cuda_lbs.forward_plan(rows, V, sms)
         before = cuda_lbs.LAUNCHES["smpl_verts"]
@@ -1006,7 +1052,7 @@ def check_smpl_verts_plans(smpl, record):
         worst = max(worst, err)
         line = f"K2 forward rows={rows}: plan {plan} {cuda_lbs.FORWARD_PLANS[plan]} (rows × vertices a block), " \
                f"max_abs_err {err:.3e} m"
-        if rows in FORWARD_ROWS:
+        if rows in forward_rows:
             ms = cuda_ms(lambda: cuda_lbs.smpl_verts(*args), 20)
             bound = _bound_ms(*_work(args, rows * 3 * V, rows, V))[0]
             record.update({f"forward_ms_b{rows}": ms, f"forward_bound_ms_b{rows}": bound, f"plan_b{rows}": plan})
@@ -1099,7 +1145,7 @@ def profile_kernel_device_times(smpl, records):
     from humaniflow_torch.render import cuda_raster, cuda_tiled
     from humaniflow_torch.utils.profiling import kernel_device_ms, training_screen
 
-    for rows in FORWARD_ROWS:
+    for rows in _forward_rows():
         args = _kernel_args(smpl, (rows,), V, seed=rows)
         records["smpl_verts"][f"forward_device_ms_b{rows}"] = kernel_device_ms(
             lambda: cuda_lbs.smpl_verts(*args), "smpl_verts_kernel", 20)
@@ -1123,7 +1169,7 @@ def profile_kernel_device_times(smpl, records):
     records["tiled_raster"]["device_ms"] = kernel_device_ms(lambda: cuda_tiled.rasterize_tiled(sv, faces, IMG),
                                                             "_kernel", 20)
     print("kernels' device ms per call (torch.profiler): " + json.dumps(
-        {"K2 forward": {r: round(records["smpl_verts"][f"forward_device_ms_b{r}"], 5) for r in FORWARD_ROWS},
+        {"K2 forward": {r: round(records["smpl_verts"][f"forward_device_ms_b{r}"], 5) for r in _forward_rows()},
          "K2 backward kernel": {r: round(records["smpl_verts_backward"][f"kernel_device_ms_b{r}"], 5)
                                 for r in (B, TRAIN_B, TRAIN_B * TRAIN_NJ)},
          "K1 (32, 100)": round(records["smpl_moments"]["device_ms"], 5),
@@ -2417,6 +2463,214 @@ def mesh_clis(cli_files):
           "wall times with each rank's start")
 
 
+# ---------------------------------------------------------------- phase 17
+
+
+def _pw3d_helpers():
+    """tests/_torch_pw3d.py: the fabricated release and the checks shared with
+    the CPU tests (numpy and OpenCV only)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    try:
+        return importlib.import_module("_torch_pw3d")
+    finally:
+        sys.path.pop(0)
+
+
+def _logged_rotations(release, names, device):
+    """What pw3d_preprocess logs for each named frame with so3_exp and so3_log
+    on `device`, computed apart from it, one person at a time as it batches
+    (tests/_torch_pw3d.py::logged_rotations)."""
+    import torch
+
+    from humaniflow_torch.ops import so3_exp, so3_log
+
+    on = lambda fn: lambda a: fn(torch.from_numpy(a).to(device)).cpu().numpy()  # noqa: E731
+    return _pw3d_helpers().logged_rotations(release, names, on(so3_exp), on(so3_log))
+
+
+def _hold_k2_rows_to_one_row_launches(smpl, rows):
+    """K2's forward at `rows` rows against `rows` one-row launches of the
+    same inputs, bit for bit (the rows are independent); launches not counted."""
+    import torch
+
+    from humaniflow_torch.models import cuda_lbs
+
+    args = _kernel_args(smpl, (rows,), V, seed=rows + 1)
+    got = cuda_lbs.smpl_verts(*args)
+    for i in range(rows):
+        one = cuda_lbs.smpl_verts(*(a[i : i + 1].clone() for a in args[:3]), *args[3:])
+        if not torch.equal(got[i : i + 1], one):
+            raise AssertionError(f"K2 at {rows} rows differs from its one-row launch at row {i}")
+
+
+def _reference_hrnet_pth(hrnet, path):
+    """Save `hrnet`'s weights under the reference's names (the inverse of
+    utils/load_reference.py's map), as pose_hrnet_w48_384x288.pth lays them out."""
+    import torch
+
+    from humaniflow_torch.utils.load_reference import _hrnet_reference_name
+
+    sd = {}
+    for key, v in hrnet.state_dict().items():
+        module, leaf = key.rsplit(".", 1)
+        sd[f"{_hrnet_reference_name(module)}.{leaf}"] = v.detach().cpu()
+    torch.save(sd, path)
+
+
+def _hold_keypoints_to_cpu(frames_dir, names, card_kps, pth):
+    """The card's keypoints of two frames against the CLI on the CPU, by
+    phase 10's rule on the heatmaps without the final-layer bias (a constant
+    per joint, which phase 10's nets leave out): within HEATMAP_RTOL of their
+    largest |value|, here plus the rounding of adding the bias on each side
+    (an ulp of the largest |heatmap|).  Confidences (the heatmap maxima)
+    within that tolerance; keypoints equal wherever the heatmap's top-2 gap
+    exceeds it (the CPU heatmaps decide)."""
+    import shutil
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from humaniflow_torch.cli import generate_hrnet_keypoints
+    from humaniflow_torch.models import PoseHighResolutionNet
+    from humaniflow_torch.utils.load_reference import load_hrnet_checkpoint
+
+    ph = importlib.import_module("humaniflow_torch.pipelines.predict_hrnet")
+    two = os.path.join(os.path.dirname(frames_dir), "two_frames")
+    os.makedirs(two)
+    for name in names:
+        shutil.copy(os.path.join(frames_dir, name), two)
+    cpu_kps = generate_hrnet_keypoints.main(["--frames_dir", two, "--out_path", os.path.join(two, "kps.npy"),
+                                             "--hrnet_checkpoint", pth, "--device", "cpu"])
+    w_in, h_in = ph.HRNET_INPUT_WH
+    imgs = np.stack([cv2.resize(cv2.cvtColor(cv2.imread(os.path.join(two, n)), cv2.COLOR_BGR2RGB), (w_in, h_in))
+                     for n in names]) / 255.0
+    hrnet = load_hrnet_checkpoint(pth, PoseHighResolutionNet(device="cpu"))
+    with torch.inference_mode():
+        hm = hrnet((torch.from_numpy(imgs).float() - torch.tensor(ph.IMAGENET_MEAN)) / torch.tensor(ph.IMAGENET_STD))
+    bias_free = hm - hrnet.final_layer.bias
+    tol = HEATMAP_RTOL * float(bias_free.abs().max()) + float(torch.finfo(torch.float32).eps * hm.abs().max())
+    top2 = bias_free.reshape(len(names), -1, hm.shape[-1]).topk(2, dim=1).values
+    decisive = ((top2[:, 0] - top2[:, 1]) > tol).numpy()
+    conf_err = float(np.abs(card_kps[..., 2] - cpu_kps[..., 2]).max())
+    differ = (card_kps[..., :2] != cpu_kps[..., :2]).any(-1)
+    print(f"17b keypoints card vs CPU (2 frames): confidences within {conf_err:.3e} (tolerance {tol:.3e}); keypoints "
+          f"differ {int(differ.sum())} of {differ.size}, {int((differ & decisive).sum())} of them decisive "
+          f"({int(decisive.sum())} decisive)")
+    if not conf_err <= tol or bool((differ & decisive).any()):
+        raise AssertionError("the card's HRNet keypoints disagree with the CPU's")
+
+
+def prepare_pw3d(smpl, cli_files):
+    """Phase 17: the data-preparation path on the card.  (a) pw3d_preprocess
+    on a fabricated 3DPW release (1080×1920 JPEG frames, 494 person-frames),
+    held to the same CLI on the CPU on one sequence, K2 launched once a
+    person; (b) generate_hrnet_keypoints on its crops (HRNet-W48 at 384×288,
+    B=16, float32, damped seeded weights from a reference-layout .pth), held
+    to the CPU on 2 frames; (c) the evaluate CLI (3DPW, N=10) on the prepared
+    directory with phase 15's checkpoint.  Returns the counted launches by path."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from humaniflow_torch.cli import generate_hrnet_keypoints, pw3d_preprocess, run_evaluate
+    from humaniflow_torch.configs import paths
+
+    helpers = _pw3d_helpers()
+    cli_root, ckpt = cli_files
+    root = os.path.join(cli_root, "pw3d17")
+    release, prepared, cpu_release, cpu_out = (os.path.join(root, d) for d in ("release", "prepared", "cpu_release",
+                                                                               "cpu_out"))
+    launches = {}
+    saved = dict(vars(paths))
+    t_phase = time.perf_counter()
+    try:
+        for gender in ("NEUTRAL", "MALE", "FEMALE"):
+            setattr(paths, f"SMPL_{gender}", os.path.join(cli_root, f"SMPL_{gender}.npz"))
+        t0 = time.perf_counter()
+        helpers.write_pw3d_release(release, PW3D_SEQUENCES, frame_wh=PW3D_FRAME_WH, focal=PW3D_FOCAL, seed=17)
+        fabricate_s = time.perf_counter() - t0
+
+        # ---- (a) pw3d_preprocess on the card
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = pw3d_preprocess.main(["--pw3d_dir", release, "--out_dir", prepared])
+        wall = time.perf_counter() - t0
+        c = launches["pw3d_preprocess"] = _read_counts()
+        rows = _pw3d_rows()
+        if res["smpl_rows"] != list(rows) or c["smpl_verts"] != len(rows):
+            raise AssertionError(f"pw3d_preprocess: SMPL rows {res['smpl_rows']} (want {list(rows)}), K2 "
+                                 f"launched {c['smpl_verts']} times (one a person: {len(rows)})")
+        print(f"17a pw3d_preprocess {res['frames']} frames of {PW3D_FRAME_WH[0]}x{PW3D_FRAME_WH[1]}: "
+              f"{res['frames'] / wall:.1f} frames/s ({wall:.2f} s: device stage (upload, so3_exp, so3_log, K2 at "
+              f"{res['smpl_rows']} rows, download) {1e3 * res['device_s']:.1f} ms, host decode/box/crop/write "
+              f"{1e3 * res['host_s']:.1f} ms); the release fabricated in {fabricate_s:.1f} s")
+        _hold_k2_rows_to_one_row_launches(smpl, rows[-1])
+
+        # the same CLI on the CPU, on one sequence
+        os.makedirs(os.path.join(cpu_release, "sequenceFiles", "test"))
+        os.makedirs(os.path.join(cpu_release, "imageFiles"))
+        shutil.copy(os.path.join(release, "sequenceFiles", "test", f"{PW3D_CPU_SEQUENCE}.pkl"),
+                    os.path.join(cpu_release, "sequenceFiles", "test"))
+        os.symlink(os.path.join(release, "imageFiles", PW3D_CPU_SEQUENCE),
+                   os.path.join(cpu_release, "imageFiles", PW3D_CPU_SEQUENCE))
+        cpu_res = pw3d_preprocess.main(["--pw3d_dir", cpu_release, "--out_dir", cpu_out, "--device", "cpu"])
+        card, cpu = (dict(np.load(os.path.join(d, "3dpw_test.npz"))) for d in (prepared, cpu_out))
+        sel = np.array([str(n).startswith(f"{PW3D_CPU_SEQUENCE}_p") for n in card["imgname"]])
+        card_sel = {k: v[sel] for k, v in card.items()}
+        helpers.hold_labels(cpu, card_sel)
+        logged = {dev: _logged_rotations(release, cpu["imgname"], dev) for dev in ("cpu", "cuda")}
+        rot, r_apart, log_loss = helpers.hold_orientations(cpu["pose"], card_sel["pose"], logged["cpu"],
+                                                           logged["cuda"], PW3D_ROT_ATOL, PW3D_LOG_ATOL)
+        apart, share = helpers.hold_crops(cpu_out, prepared, cpu["imgname"], cpu_res["corners"], res["corners"][sel],
+                                          cpu["joints2D_coco"], card_sel["joints2D_coco"], PW3D_CORNER_ATOL,
+                                          PW3D_J2D_ATOL, PW3D_CLEAR_SHARE)
+        print(f"17a card vs CPU on {PW3D_CPU_SEQUENCE} ({int(sel.sum())} frames): names, genders, shapes, body poses "
+              f"equal; each side's orientations the so3_log of its logged rotations bit for bit, the rotations "
+              f"within {r_apart:.3e}, so3_log's loss {log_loss:.3e}, orientations within {rot:.3e}; box corners "
+              f"within {apart:.3e} px; crops and integer boxes equal, 2D joints within {PW3D_J2D_ATOL} px (scaled by "
+              f"the boxes' sizes) on {100 * share:.1f}% of the frames (the rest lie within their corners' difference "
+              f"of a rounding boundary)")
+
+        # ---- (b) HRNet keypoints of the crops, HRNet-W48 at 384×288, float32
+        pth = os.path.join(root, "pose_hrnet_w48_384x288.pth")
+        _reference_hrnet_pth(_damped_hrnet(device="cpu"), pth)
+        frames_dir = os.path.join(prepared, "cropped_frames")
+        t0 = time.perf_counter()
+        kps = generate_hrnet_keypoints.main(["--frames_dir", frames_dir, "--out_path",
+                                             os.path.join(prepared, "hrnet_results_centred.npy"),
+                                             "--hrnet_checkpoint", pth, "--batch_size", "16"])
+        hr_wall = time.perf_counter() - t0
+        if kps.shape != (res["frames"], 17, 3) or not np.isfinite(kps).all():
+            raise AssertionError(f"generate_hrnet_keypoints wrote {kps.shape}, finite {np.isfinite(kps).all()}")
+        print(f"17b generate_hrnet_keypoints {res['frames']} crops of 512², B=16: {res['frames'] / hr_wall:.1f} "
+              f"frames/s ({hr_wall:.2f} s with the weights' load)")
+        names = sorted(os.listdir(frames_dir))[:2]
+        _hold_keypoints_to_cpu(frames_dir, names, kps[:2], pth)
+
+        # ---- (c) the evaluate CLI on the prepared directory
+        paths.PW3D_PATH = prepared
+        out_dir = os.path.join(root, "eval_3dpw")
+        _zero_counts()
+        t0 = time.perf_counter()
+        final = run_evaluate.main(["-D", "3dpw", "-C", ckpt, "-B", str(B), "-N", "10", "-S", out_dir])
+        ev_wall = time.perf_counter() - t0
+        c = launches["evaluate CLI, prepared 3DPW"] = _read_counts()
+        frames = {f: np.load(os.path.join(out_dir, f)) for f in os.listdir(out_dir)
+                  if f.endswith("_per_frame.npy") and f != "fname_per_frame.npy"}
+        bad = [f for f, a in frames.items() if a.shape[0] != res["frames"] or not np.isfinite(a).all()]
+        if c["smpl_verts"] == 0 or bad or not frames or not all(math.isfinite(v) for v in final.values()):
+            raise AssertionError(f"evaluate CLI on the prepared 3DPW: K2 {c['smpl_verts']}, bad files {bad}, {final}")
+        print(f"17c evaluate CLI 3dpw B={B} N=10 on the {res['frames']} prepared frames: {len(frames)} per-frame "
+              f"metric files, finite; {ev_wall:.1f} s wall; PVE-SC {final.get('PVE-SC', float('nan')):.4f}")
+    finally:
+        for k, v in saved.items():
+            setattr(paths, k, v)
+    print(f"phase 17 (data preparation → evaluation): {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
+
+
 def main() -> int:
     """Run the phases with the fused-level switch set as each needs it, and
     restore the caller's setting afterwards."""
@@ -2635,7 +2889,7 @@ def _main() -> int:
               f"(two turns: {', '.join(f'{r[0]:.2f}/{r[1]:.2f}/{r[2]:.2f}' for r in runs)})")
 
     # ---- phase 10: uncropped-image predict, HRNet-W48 at 384×288, fused level
-    from humaniflow_torch.pipelines import predict_hrnet as ph
+    ph = importlib.import_module("humaniflow_torch.pipelines.predict_hrnet")  # the module, not the function
 
     _set_fused(True)
     uimages = _uncropped_images(B, seed=31)
@@ -2694,6 +2948,9 @@ def _main() -> int:
 
         # ---- phase 16: the parallel layer (NCCL at world size 1, 2 gloo ranks on the card, the CLIs' flags)
         path_launches.update(multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, card, (cli_root, ckpt)))
+
+        # ---- phase 17: data preparation (3DPW preprocessing, HRNet keypoints) to evaluation
+        path_launches.update(prepare_pw3d(smpl, (cli_root, ckpt)))
     print(f"launches by path: {path_launches}")
 
     # ---- profiler measurements, last: a profiler session leaves the host

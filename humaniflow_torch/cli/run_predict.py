@@ -36,7 +36,9 @@ def main(argv=None):
     parser.add_argument("--checkpoint", "-C", type=str, default=None,
                         help="the reference's HuManiFlow .tar, or a checkpoint that train_humaniflow wrote "
                              "(its best_params, else its params)")
-    parser.add_argument("--hrnet_checkpoint", type=str, default=None, help="the reference's HRNet-W48 .pth")
+    parser.add_argument("--hrnet_checkpoint", type=str, default=None,
+                        help="the reference's HRNet-W48 .pth, or the hrnet_params.pt that "
+                             "cli/convert_model_files.py writes")
     parser.add_argument("--hrnet_dtype", choices=["bf16", "f32"], default="bf16",
                         help="HRNet convolution dtype (BatchNorm and heatmaps stay float32)")
     parser.add_argument("--num_samples", "-N", "--num_pred_samples", "-NP", dest="num_samples", type=int, default=50)
@@ -154,7 +156,7 @@ def _hrnet_crops(args, cfg, device):
 
     from ..data.image_ops import batch_crop_affine
     from ..models.hrnet import PoseHighResolutionNet
-    from ..pipelines import predict_hrnet as ph
+    from ..pipelines.predict_hrnet import HRNET_INPUT_WH, predict_hrnet_batch
     from ..utils.load_reference import load_hrnet_checkpoint
 
     hrnet = PoseHighResolutionNet(dtype=torch.bfloat16 if args.hrnet_dtype == "bf16" else None, device=device)
@@ -168,12 +170,12 @@ def _hrnet_crops(args, cfg, device):
         cv2.cvtColor(cv2.imread(os.path.join(args.image_dir, f)), cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
         for f in fnames
     ]
-    hr = ph.predict_hrnet_batch(
+    hr = predict_hrnet_batch(
         hrnet, raw_images, use_torchvision_detector=args.use_detector and not args.cropped_images,
         keypoint_bbox_fallback=not args.cropped_images, device=device,
     )
     n, wh = len(fnames), cfg.DATA.PROXY_REP_SIZE
-    in_w, in_h = ph.HRNET_INPUT_WH
+    in_w, in_h = HRNET_INPUT_WH
     side = max(in_w, in_h)
     crop = batch_crop_affine(
         (wh, wh), rgb=hr["cropped_images"], joints2d=hr["joints2D"],

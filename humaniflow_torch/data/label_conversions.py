@@ -1,6 +1,5 @@
-"""Joint and segmentation label conventions and converters: the parts of
-`humaniflow_tpu/data/label_conversions.py` that the proxy representation,
-evaluation and training need."""
+"""Joint and segmentation label conventions and converters: the counterpart
+of `humaniflow_tpu/data/label_conversions.py`."""
 
 import numpy as np
 import torch
@@ -31,6 +30,14 @@ def convert_densepose_seg_to_14part_labels(densepose_seg: torch.Tensor) -> torch
     """24 DensePose part labels (0..24) → 14 part labels, int64."""
     lut = torch.as_tensor(_DP24_TO_14, device=densepose_seg.device)
     return lut[densepose_seg.long()]
+
+
+def convert_multiclass_to_binary_labels(labels):
+    """Non-zero labels → 1, zero → 0, in the labels' dtype (a tensor or a
+    numpy array)."""
+    if isinstance(labels, np.ndarray):
+        return (labels != 0).astype(labels.dtype)
+    return (labels != 0).to(labels.dtype)
 
 
 def convert_2d_joints_to_gaussian_heatmaps(joints2d: torch.Tensor, img_wh: int, std: float = 4.0):

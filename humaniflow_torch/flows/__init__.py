@@ -2,7 +2,7 @@ from .autoregressive import MADE, ConditionalAffineAutoregressive, ConditionalSp
 from .dense_nn import DenseNN
 from .factory import ConditionalFlow, create_conditional_norm_flow
 from .so3_flow import SO3FlowDistribution
-from .spline import monotonic_rational_spline_forward, monotonic_rational_spline_inverse
+from .spline import monotonic_rational_spline, monotonic_rational_spline_forward, monotonic_rational_spline_inverse
 from .transforms import (
     ConditionalAdditiveCoupling,
     ConditionalAffineCoupling,
@@ -10,6 +10,7 @@ from .transforms import (
     ConditionalSplineCoupling,
     LinearPLU,
     Permute,
+    RadialTanh,
     ScaledRadialTanh,
 )
 
@@ -26,9 +27,11 @@ __all__ = [
     "LinearPLU",
     "MADE",
     "Permute",
+    "RadialTanh",
     "SO3FlowDistribution",
     "ScaledRadialTanh",
     "create_conditional_norm_flow",
+    "monotonic_rational_spline",
     "monotonic_rational_spline_forward",
     "monotonic_rational_spline_inverse",
 ]

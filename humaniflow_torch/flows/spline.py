@@ -1,5 +1,6 @@
 """Monotonic linear-rational spline (LRS) bijection: the forward direction
-(sampling) and the inverse with its log-det (density).
+(sampling), the inverse with its log-det (density), and the JAX package's
+one-call form with the log-det both ways.
 
 The PyTorch counterpart of `humaniflow_tpu/flows/spline.py` (pyro 1.7's
 `_monotonic_rational_spline` with order='linear').  The JAX package selects
@@ -94,6 +95,10 @@ def monotonic_rational_spline_forward(inputs, w_unnorm, h_unnorm, d_unnorm, l_un
         derivatives.
     :return: outputs (..., D); the identity outside [-bound, bound].
     """
+    return _spline_forward(inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound, with_logdet=False)
+
+
+def _spline_forward(inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound, with_logdet):
     inside, x, in_w, in_cw, lam, wa, wb, wc, ya, yb, yc = _bin_parameters(
         inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound, inverse=False
     )
@@ -109,7 +114,28 @@ def monotonic_rational_spline_forward(inputs, w_unnorm, h_unnorm, d_unnorm, l_un
         wa * (lam - theta) + wc * theta,
         wc * (1.0 - theta) + wb * (theta - lam),
     )
-    return torch.where(inside, numerator / denominator, inputs)
+    outputs = torch.where(inside, numerator / denominator, inputs)
+    if not with_logdet:
+        return outputs
+    deriv_num = torch.where(lo, wa * wc * lam * (yc - ya), wb * wc * (1.0 - lam) * (yb - yc)) * in_w
+    # dy/dx = deriv_num / (denominator² · width²)
+    logabsdet = (
+        torch.log(torch.clamp(deriv_num, min=1e-38))
+        - 2.0 * torch.log(torch.clamp(torch.abs(denominator), min=1e-38))
+        - 2.0 * torch.log(in_w)
+    )
+    return outputs, torch.where(inside, logabsdet, torch.zeros_like(logabsdet))
+
+
+def monotonic_rational_spline(inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, inverse: bool = False,
+                              bound: float = 3.0):
+    """The JAX package's one-call form of the spline: (outputs, logabsdet),
+    log|dy/dx| forward and log|dx/dy| with inverse=True (pyro's convention:
+    the caller negates it for the inverse direction).  Arguments as
+    monotonic_rational_spline_forward."""
+    if inverse:
+        return monotonic_rational_spline_inverse(inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound)
+    return _spline_forward(inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound, with_logdet=True)
 
 
 def monotonic_rational_spline_inverse(inputs, w_unnorm, h_unnorm, d_unnorm, l_unnorm, bound: float = 3.0):

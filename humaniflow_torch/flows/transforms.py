@@ -2,16 +2,19 @@
 
 The PyTorch counterpart of `humaniflow_tpu/flows/transforms.py`:
 permutation, the conditional spline, additive and affine couplings, the
-conditional and unconditional linear PLU layers, and scaled radial tanh.
-Each module's
+conditional and unconditional linear PLU layers, and the scaled and the
+unscaled radial tanh.  Each module's
 `forward(x, context, parts)` returns y without a log-det (the sampling path
 does not use it); `inverse(y, context, parts)` returns (x, log|dy/dx| at x),
-reduced over the event dim, as the JAX transforms' `inverse` does.  `parts`
+reduced over the event dim, as the JAX transforms' `inverse` does (the
+unscaled RadialTanh, on no path of the model, returns the log-det both ways,
+as JAX's does).  `parts`
 selects the per-part weights of the part-stacked hypernets (see
 dense_nn.py) and of the other per-part parameters.  A transform with
 parameters has `reset_parameters(generator)`.
 """
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -273,3 +276,40 @@ class ScaledRadialTanh(nn.Module):
             -2.0 * torch.log(torch.clamp(scale[..., 0], min=1e-30)) + torch.log1p(-ratio_sq),
         )
         return y * scale, ld
+
+
+class RadialTanh(nn.Module):
+    """Unscaled radial compactification y = (x/‖x‖)·R·tanh(‖x‖) with the
+    corrected log-det (the reference documents the original ReLie log-det
+    as wrong and fixes it).  `forward` returns (y, log|dy/dx| at x) and
+    `inverse` (x, log|dy/dx| at x), as the JAX transform's do."""
+
+    def __init__(self, radius: float):
+        super().__init__()
+        self.radius = radius
+
+    def _log_det(self, scale, tanh_sq):
+        # log|det dy/dx| = log R + log(1 - tanh²) + 2 log(g(‖x‖)/‖x‖); the
+        # scale g(‖x‖)/‖x‖ → R as ‖x‖ → 0, so the limit is 3 log R
+        return math.log(self.radius) + torch.log1p(-tanh_sq) + 2.0 * torch.log(torch.clamp(scale, min=1e-30))
+
+    def forward(self, x, context=None, parts=None):
+        r = self.radius
+        norm_sq = torch.sum(x * x, dim=-1, keepdim=True)
+        small = norm_sq < 1e-16
+        norm = torch.sqrt(torch.where(small, torch.ones_like(norm_sq), norm_sq))
+        scale = torch.where(small, torch.full_like(norm, r), torch.tanh(norm) * r / norm)
+        y = x * scale
+        tanh_sq = torch.clamp(torch.sum(y * y, dim=-1) / (r * r), 0.0, 1.0 - 1e-7)
+        return y, self._log_det(scale[..., 0], tanh_sq)
+
+    def inverse(self, y, context=None, parts=None):
+        r = self.radius
+        norm_sq = torch.sum(y * y, dim=-1, keepdim=True)
+        small = norm_sq < 1e-16
+        norm = torch.sqrt(torch.where(small, torch.ones_like(norm_sq), norm_sq))
+        ratio = torch.clamp(norm / r, 0.0, 1.0 - 1e-6)
+        inv_scale = torch.where(small, torch.full_like(norm, 1.0 / r), torch.atanh(ratio) / norm)
+        tanh_sq = torch.clamp(ratio[..., 0] ** 2, 0.0, 1.0 - 1e-7)
+        fwd_scale = torch.where(small[..., 0], torch.full_like(tanh_sq, r), 1.0 / inv_scale[..., 0])
+        return y * inv_scale, self._log_det(fwd_scale, tanh_sq)

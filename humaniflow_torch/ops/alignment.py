@@ -1,5 +1,6 @@
-"""Batched point-set alignment for the evaluation metrics: the PyTorch
-counterpart of `humaniflow_tpu/ops/alignment.py`, in float32 throughout.
+"""Batched point-set alignment for the evaluation metrics, and the x-z
+ground plane of meshes: the PyTorch counterpart of
+`humaniflow_tpu/ops/alignment.py`, in float32 throughout.
 XLA code in the reference, so plain PyTorch here (torch.linalg.svd)."""
 
 import torch
@@ -54,3 +55,12 @@ def scale_and_translation_transform_batch(p: torch.Tensor, t: torch.Tensor) -> t
     t_mean = t.mean(dim=-2, keepdim=True)
     t_scale = torch.sqrt(torch.sum((t - t_mean) ** 2, dim=(-2, -1), keepdim=True) / t.shape[-2])
     return p_norm * t_scale + t_mean
+
+
+def make_xz_ground_plane(vertices: torch.Tensor) -> torch.Tensor:
+    """Translate meshes (..., V, 3) so that each one's lowest y coordinate
+    lies on the x-z plane."""
+    lowest_y = vertices[..., 1].amin(dim=-1, keepdim=True)
+    out = vertices.clone()
+    out[..., 1] -= lowest_y
+    return out

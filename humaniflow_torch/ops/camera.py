@@ -1,5 +1,6 @@
 """Camera models of `humaniflow_tpu/ops/camera.py`: the weak-perspective
-(scaled orthographic) projection and the pinhole perspective projection."""
+(scaled orthographic) projection, its conversion to a camera translation,
+and the pinhole perspective projection."""
 
 import numpy as np
 import torch
@@ -48,3 +49,11 @@ def perspective_project(points: torch.Tensor, rotation=None, translation=None, c
     projected = points / points[..., 2:3]
     projected = torch.einsum("...ij,...kj->...ki", cam_K, projected)
     return projected[..., :2]
+
+
+def convert_weak_perspective_to_camera_translation(cam_wp, focal_length: float, resolution: float) -> torch.Tensor:
+    """Weak-perspective parameters (s, tx, ty) (..., 3) → camera translation
+    (tx, ty, tz) (..., 3) with tz = 2f / (res · s)."""
+    cam_wp = torch.as_tensor(cam_wp)
+    tz = 2.0 * focal_length / (resolution * cam_wp[..., 0] + 1e-9)
+    return torch.stack([cam_wp[..., 1], cam_wp[..., 2], tz], dim=-1)

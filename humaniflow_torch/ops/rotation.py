@@ -1,7 +1,6 @@
-"""Rotation-representation conversions (6D, axis-angle, matrix).
+"""Rotation-representation conversions (6D, axis-angle, quaternion, matrix).
 
-The PyTorch counterpart of the parts of `humaniflow_tpu/ops/rotation.py`
-that distribution inference, evaluation and training use.
+The PyTorch counterpart of `humaniflow_tpu/ops/rotation.py`.
 """
 
 import torch
@@ -32,6 +31,24 @@ def rotmat_to_rot6d(r: torch.Tensor, stack_columns: bool = False) -> torch.Tenso
     if stack_columns:
         return torch.cat([r[..., :, 0], r[..., :, 1]], dim=-1)
     return r[..., :, :2].reshape(r.shape[:-2] + (6,))
+
+
+def quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:
+    """Quaternions (w, x, y, z) (..., 4) → rotation matrices (..., 3, 3).
+    Normalises first."""
+    q = quat / torch.clamp(torch.linalg.norm(quat, dim=-1, keepdim=True), min=1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    w2, x2, y2, z2 = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    return torch.stack(
+        [
+            torch.stack([w2 + x2 - y2 - z2, 2 * xy - 2 * wz, 2 * wy + 2 * xz], -1),
+            torch.stack([2 * wz + 2 * xy, w2 - x2 + y2 - z2, 2 * yz - 2 * wx], -1),
+            torch.stack([2 * xz - 2 * wy, 2 * wx + 2 * yz, w2 - x2 - y2 + z2], -1),
+        ],
+        dim=-2,
+    )
 
 
 def batch_rodrigues(axisangle: torch.Tensor) -> torch.Tensor:

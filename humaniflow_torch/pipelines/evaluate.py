@@ -51,11 +51,17 @@ def _flip_x(points):
     return torch.einsum("ij,...kj->...ki", flip, points)
 
 
-def _build_eval_step(model: HumaniflowModel, smpl_neutral: SMPLModel, smpl_male: SMPLModel,
-                     smpl_female: SMPLModel, cfg: HumaniflowConfig, num_pred_samples: int,
-                     compute_samples: bool, compute_joints2d: bool):
+def make_eval_step(model: HumaniflowModel, smpl_neutral: SMPLModel, smpl_male: SMPLModel,
+                   smpl_female: SMPLModel, cfg: HumaniflowConfig, num_pred_samples: int,
+                   compute_samples: bool, compute_joints2d: bool, renderer=None):
     """The per-batch eval function: eval_step(batch, noise=None,
     generator=None) → (pred, target, proxy, extra).
+
+    The JAX package's make_eval_step keeps its traced step in a memo and an
+    AOT executable cache; nothing is traced here, so each call builds the
+    step afresh and needs neither.  `renderer` is accepted for the JAX
+    signature and unused, as there: the silhouettes are rendered outside
+    the step.
 
     batch holds device tensors: image (B, wh, wh, 3) uint8 or float in
     [0, 1], pose (B, 72), shape (B, 10), is_female (B,), and either
@@ -282,7 +288,7 @@ def evaluate_humaniflow(
     compute_silhouettes = any("silhouette" in m for m in metrics)
     compute_sil_samples = any("silhouettesamples" in m for m in metrics)
 
-    eval_step = _build_eval_step(
+    eval_step = make_eval_step(
         model, smpl_neutral, smpl_male, smpl_female, cfg, num_pred_samples, compute_samples, compute_joints2d,
     )
     is_root = mesh is None or dist.get_rank() == 0

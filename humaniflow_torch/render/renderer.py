@@ -3,7 +3,7 @@ Lambert-lit RGB.
 
 The counterpart of `humaniflow_tpu/render/renderer.py`: the DensePose UV
 tables (`load_densepose_uv_host`, the port's own copy of
-`_densepose_uv_host`) and `TexturedIUVRenderer` with the orthographic and
+`_densepose_uv_host`, and `load_densepose_uv`, the same on a device) and `TexturedIUVRenderer` with the orthographic and
 perspective cameras, the exact render (`_render`, through the exact scan or
 the tile-culled kernel K6 on CUDA), the attribute-rasterizer render
 (`_render_binned_fused`, kernel K4 on CUDA) and the silhouette path (kernel
@@ -36,6 +36,13 @@ def load_densepose_uv_host(mat_path: Optional[str] = None) -> dict:
     (13774, 3) into 7829 DensePose vertices, vertex_map (7829,) into the
     6890 SMPL vertices, per-face part ids, u/v and SURREAL atlas u/v."""
     return dict(_densepose_uv_host(mat_path or paths.DENSEPOSE_UV))
+
+
+def load_densepose_uv(mat_path: Optional[str] = None, device=None) -> dict:
+    """load_densepose_uv_host's arrays as tensors on `device` (default CUDA;
+    raises if it is unavailable), with the host arrays' dtypes."""
+    device = resolve_device(device)
+    return {k: torch.as_tensor(v, device=device) for k, v in _densepose_uv_host(mat_path or paths.DENSEPOSE_UV).items()}
 
 
 @lru_cache(maxsize=4)

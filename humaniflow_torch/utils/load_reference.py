@@ -211,6 +211,14 @@ def hrnet_state_from_reference(sd: Dict[str, torch.Tensor], hrnet: PoseHighResol
 
 
 def load_hrnet_checkpoint(path: str, hrnet: PoseHighResolutionNet) -> PoseHighResolutionNet:
-    """Load the reference's HRNet-W48 `.pth` into `hrnet`, in place; returns it."""
-    _load_state(hrnet, hrnet_state_from_reference(load_torch_state_dict(path), hrnet))
+    """Load an HRNet-W48 checkpoint into `hrnet`, in place; returns it.
+
+    The port's own `hrnet_params.pt` (cli/convert_model_files.py,
+    recognised by its `params` key) is already in the port's names; any
+    other file is the reference's `.pth`, whose names are mapped."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "params" in blob:
+        _load_state(hrnet, {k: v.detach().cpu() for k, v in blob["params"].items()})
+    else:
+        _load_state(hrnet, hrnet_state_from_reference(_reference_state_dict(blob), hrnet))
     return hrnet

@@ -46,13 +46,17 @@ tiles of several key budgets and K1 at N = 96, 100 and 112.
 goes through the fused level kernel K5; run the script with and without it
 to compare the two configurations.
 
-Needs a CUDA device; it exits non-zero without one.
+Needs a CUDA device; it exits non-zero without one.  The module also holds
+the JAX package's StageTimer, which times named stages of a program.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import time
+from collections import defaultdict
+from typing import Dict
 
 import numpy as np
 
@@ -84,6 +88,75 @@ def cuda_ms(fn, iters):
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / iters
+
+
+def _synchronize_devices_of(result):
+    """Wait for the CUDA devices that hold the tensors of `result` (a tensor
+    or nested lists, tuples and dicts of them): the port's
+    jax.block_until_ready."""
+    import torch
+
+    devices, todo = set(), [result]
+    while todo:
+        x = todo.pop()
+        if isinstance(x, torch.Tensor):
+            if x.device.type == "cuda":
+                devices.add(x.device)
+        elif isinstance(x, dict):
+            todo.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            todo.extend(x)
+    for device in devices:
+        torch.cuda.synchronize(device)
+
+
+class StageTimer:
+    """Wall-clock timing of named stages, each ending when the device work
+    of its result is done (the counterpart of the JAX package's StageTimer)."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    def _add(self, name: str, seconds: float):
+        self.totals[name] += seconds
+        self.counts[name] += 1
+
+    @contextlib.contextmanager
+    def stage(self, name: str, sync_result=None):
+        """Time the block; with sync_result, wait for its tensors' devices
+        before the clock stops."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if sync_result is not None:
+                _synchronize_devices_of(sync_result)
+            self._add(name, time.perf_counter() - t0)
+
+    def time_stage(self, name: str, fn, *args, **kwargs):
+        """fn(*args, **kwargs), timed until the device work of its result is done."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        _synchronize_devices_of(out)
+        self._add(name, time.perf_counter() - t0)
+        return out
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        return {
+            name: {
+                "total_s": self.totals[name],
+                "count": self.counts[name],
+                "mean_ms": 1000.0 * self.totals[name] / max(self.counts[name], 1),
+            }
+            for name in self.totals
+        }
+
+    def report(self) -> str:
+        lines = ["stage timings:"]
+        for name, s in sorted(self.summary().items()):
+            lines.append(f"  {name:<32} {s['mean_ms']:9.2f} ms/call × {s['count']:<6d} = {s['total_s']:8.2f} s")
+        return "\n".join(lines)
 
 
 def kernel_device_ms(fn, name: str, iters: int = 20, sessions: int = 3) -> float:
@@ -596,7 +669,7 @@ def protocol_breakdown(protocol: str, b: int):
     from ..metrics import EvalMetricsTracker
     from ..models import HumaniflowModel, synthetic_smpl
     from ..pipelines import EVAL_METRICS_3DPW, EVAL_METRICS_SSP3D
-    from ..pipelines.evaluate import _build_eval_step, _flip_x, _render_sample_silhouettes
+    from ..pipelines.evaluate import _flip_x, _render_sample_silhouettes, make_eval_step
     from ..render import TexturedIUVRenderer, cuda_coverage
 
     ssp3d = protocol == "ssp3d"
@@ -605,7 +678,7 @@ def protocol_breakdown(protocol: str, b: int):
     model = HumaniflowModel(cfg.MODEL, generator=torch.Generator().manual_seed(0))
     smpls = [synthetic_smpl(num_verts=6890, seed=s) for s in (0, 1, 2)]
     batch = staged_batch(SyntheticEvalDataset(b, cfg.DATA.PROXY_REP_SIZE), b, "cuda")
-    eval_step = _build_eval_step(model, *smpls, cfg, n, True, True)
+    eval_step = make_eval_step(model, *smpls, cfg, n, True, True)
     gen = torch.Generator("cuda")
     pred, target, proxy, extra = eval_step(batch, generator=gen.manual_seed(1))
     target.update(joints2D=batch["joints2D"], joints2D_vis=batch["joints2D_visib"], silhouettes=batch["silhouette"])

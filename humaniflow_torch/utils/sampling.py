@@ -1,15 +1,28 @@
-"""Sample post-processing: per-vertex uncertainty from mesh samples and the
-J2D-error-sorted sample selection (the counterpart of
-`humaniflow_tpu/utils/sampling.py` but for its uniform SO(3) sampling)."""
+"""Sample post-processing: per-vertex uncertainty from mesh samples, the
+J2D-error-sorted sample selection and uniform SO(3) sampling (the
+counterpart of `humaniflow_tpu/utils/sampling.py`)."""
 
 import math
+from typing import Optional
 
 import torch
 
 from ..data.label_conversions import ALL_JOINTS_TO_COCO_MAP, convert_heatmaps_to_2d_joints_coordinates
 from ..metrics.train_metrics import undo_keypoint_normalisation
 from ..ops.camera import orthographic_project
+from ..ops.rotation import quat_to_rotmat
 from ..ops.so3 import so3_exp
+from .device import resolve_device
+
+
+def so3_uniform_sampling(num_matrices: int, generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """Haar-uniform rotations (num_matrices, 3, 3) on `device` (default CUDA;
+    raises if it is unavailable): normal quaternions drawn from `generator`
+    (on its own device), normalised."""
+    device = resolve_device(device)
+    draw_on = generator.device if generator is not None else device
+    q = torch.randn((num_matrices, 4), generator=generator, device=draw_on)
+    return quat_to_rotmat(q.to(device))
 
 
 def compute_vertex_variance_from_samples(vertices_samples: torch.Tensor):

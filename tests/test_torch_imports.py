@@ -60,6 +60,8 @@ def test_port_imports_with_jax_blocked():
         "import humaniflow_torch.cli.run_evaluate, humaniflow_torch.cli.run_train\n"
         "import humaniflow_torch.cli.convert_model_files, humaniflow_torch.data.native_loader\n"
         "import humaniflow_torch.flows.autoregressive, humaniflow_torch.data.datasets\n"
+        "import humaniflow_torch.cli.pw3d_preprocess, humaniflow_torch.cli.generate_hrnet_keypoints\n"
+        "import humaniflow_torch.ops, humaniflow_torch.utils, humaniflow_torch.data, humaniflow_torch.render\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -68,7 +70,14 @@ def test_port_imports_with_jax_blocked():
 
 
 def _entry_points():
-    from humaniflow_torch.cli import run_evaluate, run_optimise, run_predict, run_train
+    from humaniflow_torch.cli import (
+        generate_hrnet_keypoints,
+        pw3d_preprocess,
+        run_evaluate,
+        run_optimise,
+        run_predict,
+        run_train,
+    )
     from humaniflow_torch.configs import get_humaniflow_cfg_defaults, get_optimise_cfg_defaults
     from humaniflow_torch.models import HumaniflowModel, PoseHighResolutionNet, synthetic_smpl
     from humaniflow_torch.pipelines import (
@@ -81,7 +90,8 @@ def _entry_points():
         predict_hrnet_batch,
         predict_humaniflow,
     )
-    from humaniflow_torch.render import TexturedIUVRenderer
+    from humaniflow_torch.render import TexturedIUVRenderer, load_densepose_uv
+    from humaniflow_torch.utils import so3_uniform_sampling
 
     cfg = get_humaniflow_cfg_defaults()
     smpl = synthetic_smpl(num_verts=64, device="cpu")
@@ -106,6 +116,11 @@ def _entry_points():
         "cli.run_evaluate": lambda: run_evaluate.main(["-D", "3dpw", "-C", "weights.tar"]),
         "cli.run_train": lambda: run_train.main(["-E", os.path.join(REPO, "build", "no_experiment")]),
         "make_training_renderer": lambda: make_training_renderer(cfg),
+        "cli.pw3d_preprocess": lambda: pw3d_preprocess.main(["--pw3d_dir", REPO, "--out_dir", REPO]),
+        "cli.generate_hrnet_keypoints": lambda: generate_hrnet_keypoints.main(
+            ["--frames_dir", REPO, "--out_path", os.path.join(REPO, "build", "no_keypoints.npy")]),
+        "so3_uniform_sampling": lambda: so3_uniform_sampling(2),
+        "load_densepose_uv": lambda: load_densepose_uv(),
     }
 
 
@@ -115,7 +130,8 @@ def _entry_points():
         "predict_humaniflow", "make_predict_fn", "HumaniflowModel", "synthetic_smpl", "SMPLModel.to",
         "evaluate_humaniflow", "TexturedIUVRenderer", "PoseHighResolutionNet", "predict_hrnet_batch",
         "cli.run_predict", "make_optimise_fn", "optimise_batch_with_humaniflow_prior", "cli.run_optimise",
-        "cli.run_evaluate", "cli.run_train", "make_training_renderer",
+        "cli.run_evaluate", "cli.run_train", "make_training_renderer", "cli.pw3d_preprocess",
+        "cli.generate_hrnet_keypoints", "so3_uniform_sampling", "load_densepose_uv",
     ],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(name):

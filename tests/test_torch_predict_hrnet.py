@@ -30,7 +30,6 @@ from humaniflow_torch.models import HumaniflowModel as TorchModel
 from humaniflow_torch.models import PoseHighResolutionNet as TorchHRNet
 from humaniflow_torch.models import smpl as tsmpl
 from humaniflow_torch.pipelines import predict as tpredict
-from humaniflow_torch.pipelines import predict_hrnet as tph
 from humaniflow_torch.utils.convert_jax import hrnet_params_from_jax, params_from_jax
 from humaniflow_torch.utils.load_reference import (
     humaniflow_state_from_reference,
@@ -45,6 +44,8 @@ from humaniflow_tpu.pipelines import predict as jpredict
 from humaniflow_tpu.utils.convert_torch import convert_humaniflow_checkpoint
 
 jph = importlib.import_module("humaniflow_tpu.pipelines.predict_hrnet")
+# the modules by path: each package's `pipelines.predict_hrnet` is the function
+tph = importlib.import_module("humaniflow_torch.pipelines.predict_hrnet")
 
 # Crops and boxes: 1e-5 (float32 resampling matmuls in other orders).  The
 # slice: 5e-4, as the predict slice (docs/PARITY.md).  The proxy's thin-edge

@@ -78,7 +78,7 @@ def test_convert_smpl_pkl_matches_jax(tmp_path):
     jsmpl.convert_smpl_pkl(str(tmp_path / "SMPL_NEUTRAL.pkl"), str(tmp_path / "jax.npz"))
     tsmpl.convert_smpl_pkl(str(tmp_path / "SMPL_NEUTRAL.pkl"), str(tmp_path / "port.npz"))
     out = convert_model_files.main(["--smpl_pkl", str(tmp_path / "SMPL_NEUTRAL.pkl"), "--out_dir",
-                                    str(tmp_path / "converted")])
+                                    str(tmp_path / "converted")])["smpl"]
     assert out == str(tmp_path / "converted" / "SMPL_NEUTRAL.npz")
     want = dict(np.load(tmp_path / "jax.npz"))
     assert sorted(want) == ["J_regressor", "f", "posedirs", "shapedirs", "v_template", "weights"]

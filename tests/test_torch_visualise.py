@@ -12,6 +12,7 @@ DensePose table cut to every FACE_STRIDE-th face (the full table's 13,774
 faces make the CPU's exact scans take minutes at 128²)."""
 
 import math
+import importlib
 import os
 
 import jax.numpy as jnp
@@ -245,7 +246,7 @@ def test_predict_cli_writes_visualisations(tmp_path, monkeypatch):
     cv2 = pytest.importorskip("cv2")
     import humaniflow_torch.models as TM
     from humaniflow_torch.cli import run_predict
-    from humaniflow_torch.pipelines import predict_hrnet as tph
+    tph = importlib.import_module("humaniflow_torch.pipelines.predict_hrnet")  # the module, not the function
 
     monkeypatch.setattr(tph, "HRNET_INPUT_WH", (64, 96))
     monkeypatch.setattr(tph, "HRNET_HEATMAP_WH", (16, 24))
