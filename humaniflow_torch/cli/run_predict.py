@@ -20,7 +20,9 @@ inference on N ranks, one process a device (NCCL on CUDA, gloo on the CPU;
 parallel/), each on its block of the images; with --sample_devices S as
 well, the ranks form a (N / S, S) ("data", "sample") mesh whose "sample"
 axis splits the N-sample SMPL stage.  The HRNet stage, the crops, the files
-and the figures run on rank 0.
+and the figures run on rank 0.  --trace_spans PATH records the program's
+spans (utils/tracing.py) through the run and writes their summary to PATH
+as JSON (rank 0's with --num_devices).
 """
 
 import argparse
@@ -67,13 +69,19 @@ def main(argv=None):
                         help="split the N-sample SMPL stage over S devices (a 2-D (data, sample) mesh, data axis "
                              "num_devices // S; parallel/sample_parallel.py).  Needs --num_devices divisible by S "
                              "and --num_samples divisible by S")
+    parser.add_argument("--trace_spans", type=str, default=None, metavar="PATH",
+                        help="record the program's spans (utils/tracing.py) and write, per span name, the calls, "
+                             "host seconds, self seconds and counters to PATH as JSON at exit (rank 0's with "
+                             "--num_devices)")
     args = parser.parse_args(argv)
 
     from ..utils.device import resolve_device
+    from ..utils.tracing import traced_to
 
     device = resolve_device(args.device)
     if not args.num_devices:
-        return _predict(args, device)
+        with traced_to(args.trace_spans):
+            return _predict(args, device)
     if args.sample_devices and args.sample_devices > 1:
         assert args.num_devices % args.sample_devices == 0, "--num_devices must be divisible by --sample_devices"
 
@@ -88,12 +96,14 @@ def main(argv=None):
 
 def _predict_rank(rank, device, args):
     from ..parallel import make_mesh, make_mesh_2d
+    from ..utils.tracing import traced_to
 
     if rank:
         sys.stdout = open(os.devnull, "w")
     s = args.sample_devices or 1
     mesh = make_mesh_2d(args.num_devices // s, s) if s > 1 else make_mesh(args.num_devices)
-    _predict(args, device, mesh)
+    with traced_to(None if rank else args.trace_spans):
+        _predict(args, device, mesh)
 
 
 def _predict(args, device, mesh=None):

@@ -14,7 +14,9 @@ SMPL_NEUTRAL.npz (cli/convert_model_files.py).  Runs on CUDA unless
 --device names another device.  -D N trains data-parallel on N ranks, one
 process a device (NCCL on CUDA, gloo on the CPU; parallel/): each rank
 takes TRAIN.BATCH_SIZE / N of every batch, which N must divide, and rank 0
-writes the files.
+writes the files.  --trace_spans PATH records the program's spans
+(utils/tracing.py) through the run and writes their summary to PATH as
+JSON (rank 0's with -D).
 """
 
 import argparse
@@ -38,10 +40,14 @@ def main(argv=None):
                         help="back-face-cull the synthetic-data renders (exact for closed, consistently wound "
                              "meshes such as SMPL's); --no-cull for meshes that self-intersect")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--trace_spans", type=str, default=None, metavar="PATH",
+                        help="record the program's spans (utils/tracing.py) and write, per span name, the calls, "
+                             "host seconds, self seconds and counters to PATH as JSON at exit (rank 0's with -D)")
     args = parser.parse_args(argv)
 
     from ..configs import load_config, save_config
     from ..utils.device import resolve_device
+    from ..utils.tracing import traced_to
 
     device = resolve_device(args.device)
     os.makedirs(args.experiment_dir, exist_ok=True)
@@ -52,7 +58,8 @@ def main(argv=None):
         cfg = load_config(args.cfg, args.cfg_overrides)
         save_config(cfg, frozen_cfg_path)
     if not args.num_devices:
-        return _train(args, cfg, device)
+        with traced_to(args.trace_spans):
+            return _train(args, cfg, device)
 
     from ..parallel import spawn
 
@@ -65,10 +72,12 @@ def main(argv=None):
 
 def _train_rank(rank, device, args, cfg):
     from ..parallel import make_mesh
+    from ..utils.tracing import traced_to
 
     if rank:
         sys.stdout = open(os.devnull, "w")
-    _train(args, cfg, device, mesh=make_mesh(args.num_devices))
+    with traced_to(None if rank else args.trace_spans):
+        _train(args, cfg, device, mesh=make_mesh(args.num_devices))
 
 
 def _train(args, cfg, device, mesh=None):

@@ -14,6 +14,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.tracing import traced
+
 BIG = 1e9
 
 
@@ -121,6 +123,7 @@ def _crop_affine_params(bbox_centres, bbox_heights, bbox_widths, output_wh, orig
     return scale, trans
 
 
+@traced("crop")
 def batch_crop_affine(
     output_wh: Tuple[int, int],
     iuv=None,

@@ -24,7 +24,7 @@ CUDA tensors it launches K5, or raises on a wrong dtype, device, layout,
 shape, flow structure or a width above what the kernel holds; it never falls
 back.  K5 has no backward (nor has the JAX kernel): on CUDA it raises when
 grad mode is on and z, ctx or the flow's weights require grad.  `LAUNCHES`
-counts its kernel launches.
+counts its kernel launches, which the spans of utils/tracing.py read.
 """
 
 import ctypes
@@ -35,10 +35,11 @@ import numpy as np
 import torch
 
 from ..utils.cuda_build import load_library, refuse_grad
+from ..utils.tracing import launch_counter
 from .factory import ConditionalFlow
 from .transforms import ConditionalSplineCoupling, Permute, ScaledRadialTanh
 
-LAUNCHES = {"flow_level": 0}
+LAUNCHES = launch_counter({"flow_level": 0})
 
 COUNT_BINS = 8  # the kernel is specialised to 8 spline bins (the default)
 MAX_COUPLINGS = 8  # csrc/flow_level.cu kMaxCouplings

@@ -26,7 +26,7 @@ CPU.  For CUDA tensors it launches the kernel, or raises on a wrong dtype,
 device, layout or shape; it never falls back.  `LAUNCHES` counts the kernel
 launches of each wrapper (K2's backward kernel under
 "smpl_verts_backward"), so a run can show that it went through the
-kernels.  The kernels are built with
+kernels; the spans of utils/tracing.py read it.  The kernels are built with
 nvcc at first use (utils/cuda_build.py).
 
 Gradients.  The forward kernels compute no gradient, so on CUDA their
@@ -52,8 +52,9 @@ import functools
 import torch
 
 from ..utils.cuda_build import load_library, refuse_grad
+from ..utils.tracing import launch_counter
 
-LAUNCHES = {"smpl_verts": 0, "smpl_moments": 0, "smpl_verts_backward": 0, "lbs_skin": 0}
+LAUNCHES = launch_counter({"smpl_verts": 0, "smpl_moments": 0, "smpl_verts_backward": 0, "lbs_skin": 0})
 
 NUM_JOINTS = 24
 NUM_POSE_FEATURES = 207

@@ -30,6 +30,7 @@ from ..flows.so3_flow import SO3FlowDistribution
 from ..ops.rotation import rot6d_to_rotmat
 from ..ops.so3 import so3_exp, so3_log
 from ..utils.device import resolve_device
+from ..utils.tracing import span
 from .resnet import RESNET_FEAT_DIMS, resnet18, resnet50
 from .smpl import SMPL_PARENTS
 
@@ -196,31 +197,33 @@ class HumaniflowModel(nn.Module):
             trajectory is the flow mode.
         :return: (pose_so3 (..., 23, 3), pose_SO3 (..., 23, 3, 3))
         """
-        batch_shape = isgc.shape[:-1]
-        so3_buf = isgc.new_zeros(batch_shape + (self.num_bodyparts, 3))
-        rot_buf = isgc.new_zeros(batch_shape + (self.num_bodyparts, 3, 3))
         fused = self._fused_level_enabled()
         if fused and torch.is_grad_enabled():
             raise RuntimeError(
                 "HFT_FUSED_LEVEL=1 under grad mode: the fused flow level (K5) has no backward, here or in "
                 "the JAX package; train with HFT_FUSED_LEVEL=0, or run inference under torch.no_grad()"
             )
-        for li in range(len(self.levels)):
-            parts = getattr(self, f"level_parts_{li}")
-            ctx = self._part_contexts(parts, isgc, rot_buf)
-            if level_noise is None:
-                z = ctx.new_zeros(ctx.shape[:-1] + (3,))
-            else:
-                noise = level_noise[li]
-                if zero_sample0:
-                    noise = torch.cat([torch.zeros_like(noise[:, :1]), noise], dim=1)
-                z = noise * self.flow.base_dist_std
-            if fused:  # the einsum in _part_contexts may leave ctx strided
-                x = cuda_level.flow_forward_level(self.flow, z.contiguous(), ctx.contiguous(), parts)
-            else:
-                x = self.flow(z, ctx, parts)
-            so3_buf[..., parts, :] = x
-            rot_buf[..., parts, :, :] = so3_exp(x)
+        with span("flow.sample"):
+            batch_shape = isgc.shape[:-1]
+            so3_buf = isgc.new_zeros(batch_shape + (self.num_bodyparts, 3))
+            rot_buf = isgc.new_zeros(batch_shape + (self.num_bodyparts, 3, 3))
+            for li in range(len(self.levels)):
+                with span("flow.level"):
+                    parts = getattr(self, f"level_parts_{li}")
+                    ctx = self._part_contexts(parts, isgc, rot_buf)
+                    if level_noise is None:
+                        z = ctx.new_zeros(ctx.shape[:-1] + (3,))
+                    else:
+                        noise = level_noise[li]
+                        if zero_sample0:
+                            noise = torch.cat([torch.zeros_like(noise[:, :1]), noise], dim=1)
+                        z = noise * self.flow.base_dist_std
+                    if fused:  # the einsum in _part_contexts may leave ctx strided
+                        x = cuda_level.flow_forward_level(self.flow, z.contiguous(), ctx.contiguous(), parts)
+                    else:
+                        x = self.flow(z, ctx, parts)
+                    so3_buf[..., parts, :] = x
+                    rot_buf[..., parts, :, :] = so3_exp(x)
         return so3_buf, rot_buf
 
     def _draw_level_noise(self, batch_shape, generator):
@@ -289,7 +292,8 @@ class HumaniflowModel(nn.Module):
             was_training = self.encoder.training
             self.encoder.train(train)
             try:
-                input_feats = self.encoder(proxy_input)
+                with span("encoder"):
+                    input_feats = self.encoder(proxy_input)
             finally:
                 self.encoder.train(was_training)
             if train:
@@ -297,13 +301,14 @@ class HumaniflowModel(nn.Module):
         if return_input_feats:
             out["input_feats"] = input_feats
 
-        x = F.elu(self.fc1(input_feats))
-        cam = self.fc_cam(x) + self.init_cam
-        glob_r = rot6d_to_rotmat(self.fc_glob(x) + self.init_glob)
-        n_betas = self.cfg.NUM_SMPL_BETAS
-        shape_params = self.fc_shape(x)
-        shape_mode = shape_params[:, :n_betas]
-        shape_log_std = shape_params[:, n_betas:]
+        with span("heads"):
+            x = F.elu(self.fc1(input_feats))
+            cam = self.fc_cam(x) + self.init_cam
+            glob_r = rot6d_to_rotmat(self.fc_glob(x) + self.init_glob)
+            n_betas = self.cfg.NUM_SMPL_BETAS
+            shape_params = self.fc_shape(x)
+            shape_mode = shape_params[:, :n_betas]
+            shape_log_std = shape_params[:, n_betas:]
         out.update(cam_wp=cam, glob_rotmat=glob_r, shape_mode=shape_mode, shape_log_std=shape_log_std)
 
         b = shape_mode.shape[0]

@@ -23,8 +23,10 @@ from ..models.smpl import SMPLModel, smpl_forward
 from ..parallel.mesh import DATA_AXIS, all_gather_tree, axis_group, axis_size, pad_batch_to_devices, shard_batch
 from ..utils.device import resolve_device
 from ..utils.sampling import compute_vertex_variance_from_samples
+from ..utils.tracing import count, enabled, span, traced
 
 
+@traced("proxy")
 def build_proxy_representation(
     image: torch.Tensor,
     joints2d: torch.Tensor,
@@ -41,17 +43,19 @@ def build_proxy_representation(
             gaussian_filter_size=cfg.DATA.EDGE_GAUSSIAN_SIZE,
             threshold=cfg.DATA.EDGE_THRESHOLD,
         )
-    edges = edge_detector(image)
-    edge_img = edges["thresholded_thin_edges"] if cfg.DATA.EDGE_NMS else edges["thresholded_grad_magnitude"]
-    heatmaps = convert_2d_joints_to_gaussian_heatmaps(
-        joints2d, cfg.DATA.PROXY_REP_SIZE, std=cfg.DATA.HEATMAP_GAUSSIAN_STD
-    )  # (B, 17, wh, wh)
-    if joints2d_conf is not None:
-        # occlusion gating applies to appendage joints only; head and torso
-        # (0..6) are always kept
-        vis = joints2d_conf > joints2d_visib_threshold
-        vis[:, :7] = True
-        heatmaps = heatmaps * vis[:, :, None, None]
+    with span("proxy.edges"):
+        edges = edge_detector(image)
+        edge_img = edges["thresholded_thin_edges"] if cfg.DATA.EDGE_NMS else edges["thresholded_grad_magnitude"]
+    with span("proxy.heatmaps"):
+        heatmaps = convert_2d_joints_to_gaussian_heatmaps(
+            joints2d, cfg.DATA.PROXY_REP_SIZE, std=cfg.DATA.HEATMAP_GAUSSIAN_STD
+        )  # (B, 17, wh, wh)
+        if joints2d_conf is not None:
+            # occlusion gating applies to appendage joints only; head and torso
+            # (0..6) are always kept
+            vis = joints2d_conf > joints2d_visib_threshold
+            vis[:, :7] = True
+            heatmaps = heatmaps * vis[:, :, None, None]
     return torch.cat([edge_img, heatmaps.permute(0, 2, 3, 1)], dim=-1)
 
 
@@ -90,6 +94,7 @@ def make_predict_fn(
     data_group = None if mesh is None else axis_group(mesh, DATA_AXIS)
 
     @torch.inference_mode()
+    @traced("dist_infer")
     def predict(proxy, generator: Optional[torch.Generator] = None, base_noise: Optional[List] = None):
         shape_noise = None
         if mesh is not None:
@@ -108,9 +113,11 @@ def make_predict_fn(
             shape_noise=shape_noise,
         )
         b = proxy.shape[0]
-        pe = smpl_forward(smpl, out["shape_mode"], out["pose_rotmats_point_est"], out["glob_rotmat"])
+        with span("smpl"):
+            pe = smpl_forward(smpl, out["shape_mode"], out["pose_rotmats_point_est"], out["glob_rotmat"])
         eye = torch.eye(3, device=proxy.device)
-        tpose = smpl_forward(smpl, out["shape_mode"], eye.expand(b, 23, 3, 3), eye.expand(b, 3, 3))
+        with span("smpl"):
+            tpose = smpl_forward(smpl, out["shape_mode"], eye.expand(b, 23, 3, 3), eye.expand(b, 3, 3))
 
         n = num_samples
         flat_in = (
@@ -121,7 +128,8 @@ def make_predict_fn(
         if sample_shards > 1:
             # this rank's block of the data block's b·N rows: flat block d·S + s of B·N
             flat_in = shard_batch(flat_in, mesh, "sample")
-        flat = smpl_forward(smpl, *flat_in)
+        with span("smpl"):
+            flat = smpl_forward(smpl, *flat_in)
         pred = {
             "cam_wp": out["cam_wp"],
             "glob_rotmat": out["glob_rotmat"],
@@ -145,7 +153,8 @@ def make_predict_fn(
             b = pred["cam_wp"].shape[0]
         nv = flat_out["vertices"].shape[1]
         verts_samples = flat_out["vertices"].reshape(b, n, nv, 3)
-        avg_l2, directional_std = compute_vertex_variance_from_samples(verts_samples)
+        with span("variance"):
+            avg_l2, directional_std = compute_vertex_variance_from_samples(verts_samples)
         pred.update(
             verts_samples=verts_samples,
             joints_samples=flat_out["joints"].reshape(b, n, -1, 3),
@@ -176,6 +185,7 @@ def save_pred_output(pred: Dict, fnames, save_dir: str, extras: Optional[Dict] =
         )
 
 
+@traced("predict")
 def predict_humaniflow(
     model: HumaniflowModel,
     smpl: SMPLModel,
@@ -210,11 +220,14 @@ def predict_humaniflow(
     """
     device = resolve_device(device)
     as_t = lambda a: torch.as_tensor(a if isinstance(a, torch.Tensor) else np.asarray(a), device=device)  # noqa: E731
-    proxy = build_proxy_representation(
-        as_t(images).to(torch.float32), as_t(joints2d),
-        None if joints2d_conf is None else as_t(joints2d_conf), cfg,
-        joints2d_visib_threshold=joints2d_visib_threshold,
-    )
+    with span("predict.upload"):
+        if enabled() and device.type != "cpu":  # the bytes of the host arrays that the copies move
+            count("h2d_bytes", sum(np.asarray(a).nbytes for a in (images, joints2d, joints2d_conf)
+                                   if a is not None and not (isinstance(a, torch.Tensor) and a.device.type != "cpu")))
+        image_t, joints2d_t = as_t(images).to(torch.float32), as_t(joints2d)
+        conf_t = None if joints2d_conf is None else as_t(joints2d_conf)
+    proxy = build_proxy_representation(image_t, joints2d_t, conf_t, cfg,
+                                       joints2d_visib_threshold=joints2d_visib_threshold)
     predict = make_predict_fn(model, smpl, cfg, num_samples=num_samples, device=device, mesh=mesh)
     if generator is None and base_noise is None:
         generator = torch.Generator(device).manual_seed(0)

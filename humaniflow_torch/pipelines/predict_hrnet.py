@@ -22,6 +22,7 @@ import torch
 from ..data.image_ops import batch_crop_affine
 from ..models.hrnet import PoseHighResolutionNet, get_kp_locations_confs_from_heatmaps
 from ..utils.device import resolve_device
+from ..utils.tracing import count, enabled, span, traced
 
 HRNET_INPUT_WH = (288, 384)  # (width, height)
 HRNET_HEATMAP_WH = (72, 96)
@@ -109,9 +110,12 @@ def select_central_keypoint_cluster(joints2d: np.ndarray, confs: np.ndarray, img
     return mask
 
 
+@traced("hrnet.upload")
 def _upload(images: Sequence[np.ndarray], device) -> List[Tuple[List[int], torch.Tensor]]:
     """The images grouped by shape, each group stacked on `device` once:
     [(indices, (n, H, W, 3) float32 tensor)]."""
+    if enabled() and device.type != "cpu":
+        count("h2d_bytes", sum(img.nbytes for img in images))
     groups: Dict[Tuple[int, ...], List[int]] = {}
     for i, img in enumerate(images):
         groups.setdefault(img.shape, []).append(i)
@@ -119,6 +123,7 @@ def _upload(images: Sequence[np.ndarray], device) -> List[Tuple[List[int], torch
             for idxs in groups.values()]
 
 
+@traced("hrnet.crop")
 def _crop_to_hrnet_input(groups, centres, heights, widths, bbox_scale_factor: float,
                          device) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
     """Crop every image to HRNET_INPUT_WH, one batched crop per shape group
@@ -144,13 +149,16 @@ def _crop_to_hrnet_input(groups, centres, heights, widths, bbox_scale_factor: fl
 def _hrnet_keypoints(hrnet: PoseHighResolutionNet, crops: torch.Tensor):
     """Normalise → HRNet → argmax decode, one batched forward: keypoints
     (N, 17, 2) in crop pixels and confidences (N, 17), on the crops' device."""
-    mean = torch.tensor(IMAGENET_MEAN, device=crops.device)
-    std = torch.tensor(IMAGENET_STD, device=crops.device)
-    heatmaps = hrnet((crops - mean) / std)
-    joints2d, confs = get_kp_locations_confs_from_heatmaps(heatmaps)
-    return joints2d * (HRNET_INPUT_WH[0] / HRNET_HEATMAP_WH[0]), confs
+    with span("hrnet.net"):
+        mean = torch.tensor(IMAGENET_MEAN, device=crops.device)
+        std = torch.tensor(IMAGENET_STD, device=crops.device)
+        heatmaps = hrnet((crops - mean) / std)
+    with span("hrnet.decode"):
+        joints2d, confs = get_kp_locations_confs_from_heatmaps(heatmaps)
+        return joints2d * (HRNET_INPUT_WH[0] / HRNET_HEATMAP_WH[0]), confs
 
 
+@traced("hrnet")
 def predict_hrnet_batch(
     hrnet: PoseHighResolutionNet,
     images: Sequence[np.ndarray],
@@ -198,25 +206,26 @@ def predict_hrnet_batch(
     joints2d, confs = _hrnet_keypoints(hrnet, crops)
 
     if keypoint_bbox_fallback and needs_fallback:
-        # whole-image keypoints back to source pixels through the exact
-        # inverse crop affine; the central cluster's box; crop and run again
-        j2d_np, confs_np = joints2d.cpu().numpy(), confs.cpu().numpy()
-        refined = False
-        for i in needs_fallback:
-            src_j2d = (j2d_np[i] - transes[i]) / scales[i]
-            h_i, w_i = images[i].shape[:2]
-            keep = select_central_keypoint_cluster(src_j2d, confs_np[i], h_i, w_i,
-                                                   conf_threshold=keypoint_conf_threshold)
-            bbox = bbox_from_keypoints(src_j2d, np.where(keep, confs_np[i], 0.0),
-                                       conf_threshold=keypoint_conf_threshold)
-            if bbox is not None:
-                centres[i] = bbox[0]
-                heights[i], widths[i] = bbox[1], bbox[2]
-                refined = True
-        if refined:
-            crops, scales, transes = _crop_to_hrnet_input(groups, centres, heights, widths, bbox_scale_factor,
-                                                          device)
-            joints2d, confs = _hrnet_keypoints(hrnet, crops)
+        with span("hrnet.fallback"):
+            # whole-image keypoints back to source pixels through the exact
+            # inverse crop affine; the central cluster's box; crop and run again
+            j2d_np, confs_np = joints2d.cpu().numpy(), confs.cpu().numpy()
+            refined = False
+            for i in needs_fallback:
+                src_j2d = (j2d_np[i] - transes[i]) / scales[i]
+                h_i, w_i = images[i].shape[:2]
+                keep = select_central_keypoint_cluster(src_j2d, confs_np[i], h_i, w_i,
+                                                       conf_threshold=keypoint_conf_threshold)
+                bbox = bbox_from_keypoints(src_j2d, np.where(keep, confs_np[i], 0.0),
+                                           conf_threshold=keypoint_conf_threshold)
+                if bbox is not None:
+                    centres[i] = bbox[0]
+                    heights[i], widths[i] = bbox[1], bbox[2]
+                    refined = True
+            if refined:
+                crops, scales, transes = _crop_to_hrnet_input(groups, centres, heights, widths, bbox_scale_factor,
+                                                              device)
+                joints2d, confs = _hrnet_keypoints(hrnet, crops)
 
     return {
         "joints2D": joints2d,

@@ -52,6 +52,7 @@ from ..ops.rotation import aa_rotate_rotmats, aa_rotate_translate_points
 from ..ops.so3 import so3_exp
 from ..parallel.mesh import DATA_AXIS, all_reduce_sum, axis_group, axis_rank, axis_size, replicate, shard_batch
 from ..utils.checkpoints import load_training_info_from_checkpoint, save_checkpoint
+from ..utils.tracing import span, traced
 from .train_step import make_train_step
 
 
@@ -91,6 +92,7 @@ def make_synth_data_fn(cfg: HumaniflowConfig, smpl: SMPLModel, renderer):
     nb = cfg.MODEL.NUM_SMPL_BETAS
 
     @torch.no_grad()
+    @traced("synth")
     def synth_batch(draws: Draws, pose72, texture, background) -> Dict[str, torch.Tensor]:
         b, dev = pose72.shape[0], pose72.device
         x_axis = torch.tensor([1.0, 0.0, 0.0], device=dev)
@@ -105,7 +107,8 @@ def make_synth_data_fn(cfg: HumaniflowConfig, smpl: SMPLModel, renderer):
                                     torch.full((nb,), aug.SMPL.SHAPE_STD, device=dev))
         cam_t = augment_cam_t(draws, torch.tensor(sd.MEAN_CAM_T, device=dev).expand(b, 3),
                               xy_std=aug.CAM.XY_STD, delta_z_range=aug.CAM.DELTA_Z_RANGE)
-        smpl_out = smpl_forward(smpl, shape, body_r, glob_r)
+        with span("synth.smpl"):
+            smpl_out = smpl_forward(smpl, shape, body_r, glob_r)
 
         # render + 2D targets
         verts_render = aa_rotate_translate_points(smpl_out["vertices"], x_axis, math.pi, zero3)
@@ -120,35 +123,40 @@ def make_synth_data_fn(cfg: HumaniflowConfig, smpl: SMPLModel, renderer):
             specular_intensity_range=aug.RGB.LIGHT_SPECULAR_RANGE,
         )
         lights["location"] = augment_light_t(draws.whole(), 1, aug.RGB.LIGHT_LOC_RANGE)
-        render = renderer(verts_render, cam_t=cam_t, textures=texture, lights_rgb_settings=lights)
-        iuv, rgb = render["iuv_images"], render["rgb_images"]
+        with span("synth.render"):
+            render = renderer(verts_render, cam_t=cam_t, textures=texture, lights_rgb_settings=lights)
+            iuv, rgb = render["iuv_images"], render["rgb_images"]
 
-        # extreme crop + box crop with jitter
-        seg_extreme = random_extreme_crop(draws, iuv[..., 0].to(torch.int32),
-                                          extreme_crop_probability=aug.PROXY_REP.EXTREME_CROP_PROB)
-        crop = batch_crop_affine(
-            (img_wh, img_wh), iuv=iuv, rgb=rgb, joints2d=j2d, bbox_determiner=seg_extreme.to(torch.float32),
-            orig_scale_factor=cfg.DATA.BBOX_SCALE_FACTOR, draws=draws,
-            delta_scale_range=aug.BBOX.DELTA_SCALE_RANGE, delta_centre_range=aug.BBOX.DELTA_CENTRE_RANGE,
-            out_of_frame_pad_val=-1.0,
-        )
-        iuv, rgb, j2d = crop["iuv"], crop["rgb"], crop["joints2d"]
-        seg = torch.round(iuv[..., 0]).to(torch.int32)
+        with span("synth.crop"):
+            # extreme crop + box crop with jitter
+            seg_extreme = random_extreme_crop(draws, iuv[..., 0].to(torch.int32),
+                                              extreme_crop_probability=aug.PROXY_REP.EXTREME_CROP_PROB)
+            crop = batch_crop_affine(
+                (img_wh, img_wh), iuv=iuv, rgb=rgb, joints2d=j2d, bbox_determiner=seg_extreme.to(torch.float32),
+                orig_scale_factor=cfg.DATA.BBOX_SCALE_FACTOR, draws=draws,
+                delta_scale_range=aug.BBOX.DELTA_SCALE_RANGE, delta_centre_range=aug.BBOX.DELTA_CENTRE_RANGE,
+                out_of_frame_pad_val=-1.0,
+            )
+            iuv, rgb, j2d = crop["iuv"], crop["rgb"], crop["joints2d"]
+            seg = torch.round(iuv[..., 0]).to(torch.int32)
 
-        # visibility + occlusion checks
-        j2d_vis = check_joints2d_visibility(j2d, img_wh, j2d_vis)
-        j2d_vis = check_joints2d_occluded(convert_densepose_seg_to_14part_labels(torch.clamp(seg, min=0)), j2d_vis)
+        with span("synth.augment"):
+            # visibility + occlusion checks
+            j2d_vis = check_joints2d_visibility(j2d, img_wh, j2d_vis)
+            j2d_vis = check_joints2d_occluded(convert_densepose_seg_to_14part_labels(torch.clamp(seg, min=0)),
+                                              j2d_vis)
 
-        # proxy + RGB augmentation
-        seg_aug, j2d_input, j2d_vis = augment_proxy_representation(draws, seg, j2d, j2d_vis, aug.PROXY_REP)
-        rgb = batch_add_rgb_background(background, rgb, seg_aug)
-        rgb, j2d_input, j2d_vis = augment_rgb(draws, rgb, j2d_input, j2d_vis, aug.RGB)
+            # proxy + RGB augmentation
+            seg_aug, j2d_input, j2d_vis = augment_proxy_representation(draws, seg, j2d, j2d_vis, aug.PROXY_REP)
+            rgb = batch_add_rgb_background(background, rgb, seg_aug)
+            rgb, j2d_input, j2d_vis = augment_rgb(draws, rgb, j2d_input, j2d_vis, aug.RGB)
 
-        # edges + heatmaps → proxy
-        edges = edge_detector(rgb)
-        edge_in = edges["thresholded_thin_edges"] if cfg.DATA.EDGE_NMS else edges["thresholded_grad_magnitude"]
-        heatmaps = convert_2d_joints_to_gaussian_heatmaps(j2d_input, img_wh, std=cfg.DATA.HEATMAP_GAUSSIAN_STD)
-        heatmaps = heatmaps * j2d_vis.to(torch.float32)[:, :, None, None]
+        with span("synth.proxy"):
+            # edges + heatmaps → proxy
+            edges = edge_detector(rgb)
+            edge_in = edges["thresholded_thin_edges"] if cfg.DATA.EDGE_NMS else edges["thresholded_grad_magnitude"]
+            heatmaps = convert_2d_joints_to_gaussian_heatmaps(j2d_input, img_wh, std=cfg.DATA.HEATMAP_GAUSSIAN_STD)
+            heatmaps = heatmaps * j2d_vis.to(torch.float32)[:, :, None, None]
         out = {
             "proxy": torch.cat([edge_in, heatmaps.permute(0, 2, 3, 1)], dim=-1),
             "pose_rotmats": body_r,

@@ -43,6 +43,7 @@ from ..models.resnet import BatchNorm, fp32_convolutions
 from ..models.smpl import SMPLModel, smpl_forward
 from ..ops.camera import orthographic_project
 from ..parallel.mesh import DATA_AXIS, all_reduce_sum, axis_group, shard_batch
+from ..utils.tracing import span, traced
 
 _H36M_J14 = [ALL_JOINTS_TO_H36M_MAP[i] for i in H36M_TO_J14]
 
@@ -179,6 +180,7 @@ def make_train_step(model: HumaniflowModel, smpl: SMPLModel, loss_cfg: LossConfi
             torch._foreach_copy_(list(grads), views)
         metrics.update(zip(names, flat[off:].unbind()))
 
+    @traced("train_step")
     def step(batch, generator, noise, update):
         if group is not None and noise is None and use_samples:
             # the whole batch's noise, drawn as one process draws it; this rank's block
@@ -186,28 +188,33 @@ def make_train_step(model: HumaniflowModel, smpl: SMPLModel, loss_cfg: LossConfi
             noise = shard_batch((shape_noise, base_noise), mesh)
         saved_bn = [b.clone() for b in bn_buffers]
         if not update:
-            with torch.no_grad():
+            with torch.no_grad(), span("train_step.forward"):
                 _, metrics, _ = loss_fn(batch, generator, noise)
                 if group is not None:
                     mean_over_ranks(metrics)
             torch._foreach_copy_(bn_buffers, saved_bn)
             return metrics
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics, flow_ctx = loss_fn(batch, generator, noise)
-        with fp32_convolutions():  # the backward's convolutions run here, outside the forward's context
-            loss.backward()
+        with span("train_step.forward"):
+            loss, metrics, flow_ctx = loss_fn(batch, generator, noise)
+        with span("train_step.backward"):
+            with fp32_convolutions():  # the backward's convolutions run here, outside the forward's context
+                loss.backward()
         for p in params:  # optax updates every parameter, zero gradients included
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if group is not None:
             mean_over_ranks(metrics, [p.grad for p in params])
             loss = metrics["total"]
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm([p.grad for p in params])))
-        ok = torch.isfinite(loss.detach()) & torch.isfinite(gnorm)
-        if bool(ok):
-            optimizer.step()
-            # the flow BatchNorm statistics move from the stepped values, with the forward's contexts
-            model.update_pose_flow_batchnorm_stats(batch["pose_rotmats"], flow_ctx)
+        with span("train_step.check"):  # bool(ok) waits for the device
+            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm([p.grad for p in params])))
+            ok = torch.isfinite(loss.detach()) & torch.isfinite(gnorm)
+            take = bool(ok)
+        if take:
+            with span("train_step.optimizer"):
+                optimizer.step()
+                # the flow BatchNorm statistics move from the stepped values, with the forward's contexts
+                model.update_pose_flow_batchnorm_stats(batch["pose_rotmats"], flow_ctx)
         else:
             torch._foreach_copy_(bn_buffers, saved_bn)
         metrics["grad_norm"] = gnorm

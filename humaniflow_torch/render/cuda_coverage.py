@@ -28,7 +28,7 @@ whole image up to 512²).  csrc/coverage.cu describes the design.
 tensors it launches K3, or raises on a wrong dtype, device, layout or
 shape; it never falls back.  K3 has no backward: on CUDA `coverage` raises
 when grad mode is on and verts_screen requires grad.  `LAUNCHES` counts its
-kernel launches.
+kernel launches, which the spans of utils/tracing.py read.
 """
 
 import ctypes
@@ -36,9 +36,10 @@ import ctypes
 import torch
 
 from ..utils.cuda_build import load_library, refuse_grad
+from ..utils.tracing import launch_counter
 from .rasterizer import chunk_sizes
 
-LAUNCHES = {"coverage": 0}
+LAUNCHES = launch_counter({"coverage": 0})
 BAND_WORDS = 8192  # csrc/coverage.cu kBandWords: 32 KB of mask bits per block
 
 

@@ -34,7 +34,8 @@ formula in tests/test_torch_kernels_cpu.py.
 `raster` computes the twin when the tensors lie on the CPU.  For CUDA
 tensors it launches K4, or raises on a wrong dtype, device, layout or shape,
 or when grad mode is on and an input requires grad (K4 has no backward); it
-never falls back.  `LAUNCHES` counts its launches (both passes: one).
+never falls back.  `LAUNCHES` counts its launches (both passes: one); the
+spans of utils/tracing.py read it.
 """
 
 import ctypes
@@ -42,10 +43,11 @@ import ctypes
 import torch
 
 from ..utils.cuda_build import load_library, refuse_grad
+from ..utils.tracing import launch_counter
 from .cuda_coverage import _edge_plane_coeffs
 from .rasterizer import BIG_DEPTH, Fragments, chunk_sizes
 
-LAUNCHES = {"raster": 0}
+LAUNCHES = launch_counter({"raster": 0})
 TILE_KEYS = 4096  # keys a block holds by default: 32 KB of shared memory
 MAX_TILE_KEYS = 20480  # csrc/raster.cu kMaxTileKeys: 160 KB
 TILE_COLS = 256  # the widest tile

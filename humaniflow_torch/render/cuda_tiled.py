@@ -33,7 +33,7 @@ the fragments stay the twin's bit for bit.
 CUDA tensors it launches K6, or raises on a wrong dtype, device, layout or
 shape; it never falls back.  K6 has no backward: on CUDA the wrapper raises
 when grad mode is on and verts_screen requires grad.  `LAUNCHES` counts its
-launches.
+launches, which the spans of utils/tracing.py read.
 """
 
 import ctypes
@@ -42,9 +42,10 @@ import numpy as np
 import torch
 
 from ..utils.cuda_build import load_library, refuse_grad
+from ..utils.tracing import launch_counter
 from .rasterizer import BIG_DEPTH, Fragments, zbuffer_scan
 
-LAUNCHES = {"tiled_raster": 0}
+LAUNCHES = launch_counter({"tiled_raster": 0})
 
 BLOCK_ROWS = 32  # the culling tile
 BLOCK_COLS = 128

@@ -60,6 +60,8 @@ from typing import Dict
 
 import numpy as np
 
+from .tracing import span
+
 
 def wall_ms(fn, iters):
     """Mean host-clock ms of fn() ending in a device synchronise, after one
@@ -112,7 +114,9 @@ def _synchronize_devices_of(result):
 
 class StageTimer:
     """Wall-clock timing of named stages, each ending when the device work
-    of its result is done (the counterpart of the JAX package's StageTimer)."""
+    of its result is done (the counterpart of the JAX package's StageTimer).
+    Each stage is also a span of its name (utils/tracing.py), the
+    synchronise included."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
@@ -126,20 +130,22 @@ class StageTimer:
     def stage(self, name: str, sync_result=None):
         """Time the block; with sync_result, wait for its tensors' devices
         before the clock stops."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync_result is not None:
-                _synchronize_devices_of(sync_result)
-            self._add(name, time.perf_counter() - t0)
+        with span(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if sync_result is not None:
+                    _synchronize_devices_of(sync_result)
+                self._add(name, time.perf_counter() - t0)
 
     def time_stage(self, name: str, fn, *args, **kwargs):
         """fn(*args, **kwargs), timed until the device work of its result is done."""
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        _synchronize_devices_of(out)
-        self._add(name, time.perf_counter() - t0)
+        with span(name):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _synchronize_devices_of(out)
+            self._add(name, time.perf_counter() - t0)
         return out
 
     def summary(self) -> Dict[str, Dict[str, float]]:

@@ -1,7 +1,7 @@
 """`python -m humaniflow_torch.cli.run_train` on the CPU, on fabricated
 training files and an SMPL file from the port's converter: two epochs, the
 frozen config that the JAX CLI would write, the log and the checkpoints,
-then a resume for a third epoch from the frozen config."""
+then a resume for a third epoch from the frozen config; `--trace_spans`."""
 
 import math
 import os
@@ -73,3 +73,21 @@ def test_train_cli_two_epochs_then_resume(tmp_path, monkeypatch, capsys):
     assert third["epoch"] == 2 and set(third) == CHECKPOINT_KEYS
     assert third["params"]["fc1.weight"].shape == ckpts[1]["params"]["fc1.weight"].shape
     assert not torch.equal(third["params"]["fc1.weight"], ckpts[1]["params"]["fc1.weight"])
+
+
+def test_train_cli_writes_the_span_summary(tmp_path, monkeypatch):
+    """`run_train --trace_spans PATH` for one epoch: PATH holds the synthetic
+    batch's and the train step's spans, a step for each training batch."""
+    import json
+
+    _point_paths(monkeypatch, tmp_path)
+    spans = tmp_path / "spans.json"
+    overrides = list(OVERRIDES)
+    overrides[overrides.index("TRAIN.NUM_EPOCHS") + 1] = "1"
+    run_train.main(["-E", str(tmp_path / "experiment"), "-O", *overrides, "--device", "cpu",
+                    "--trace_spans", str(spans)])
+    summary = json.loads(spans.read_text())
+    for name in ("synth", "synth.render", "train_step", "train_step.backward", "train_step.check"):
+        assert summary[name]["calls"] >= 1 and summary[name]["host_s"] > 0, name
+    assert summary["train_step.backward"]["calls"] == 1  # one training batch of 2; the validation step has none
+    assert summary["train_step.forward"]["calls"] == summary["train_step"]["calls"] == 2

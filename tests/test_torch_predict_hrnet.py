@@ -356,6 +356,28 @@ def test_predict_cli_writes_predictions(slice_models, tmp_path, monkeypatch):
             assert np.isfinite(d[k]).all(), k
 
 
+def test_predict_cli_writes_the_span_summary(slice_models, tmp_path, monkeypatch):
+    """`run_predict --trace_spans PATH` on the CLI's tiny files: PATH holds
+    the summary of the program's spans, the prediction's among them, and
+    tracing is off again after the run."""
+    import json
+
+    from humaniflow_torch.cli import run_predict
+    from humaniflow_torch.utils import tracing
+
+    tar, pth, img_dir, cfg = _cli_files(slice_models, tmp_path, monkeypatch)
+    spans = tmp_path / "spans.json"
+    run_predict.main(["-I", str(img_dir), "-S", str(tmp_path / "out"), "-C", tar, "--hrnet_checkpoint", pth,
+                      "--hrnet_dtype", "f32", "-N", "2", "--cfg", str(cfg), "--device", "cpu",
+                      "--trace_spans", str(spans)])
+    summary = json.loads(spans.read_text())
+    for name in ("predict", "dist_infer", "flow.sample", "hrnet"):
+        assert summary[name]["calls"] == 1 and summary[name]["host_s"] > 0, name
+    assert summary["flow.level"]["calls"] == 8
+    assert 0 <= summary["predict"]["self_s"] <= summary["predict"]["host_s"]
+    assert not tracing.enabled()
+
+
 def _train_checkpoint(save_dir, best, params):
     """A checkpoint in train_humaniflow's layout (pipelines/train.py), saved
     through utils/checkpoints.save_checkpoint; returns its path."""
