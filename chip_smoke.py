@@ -37,13 +37,14 @@ Phases, each of which raises on failure (exit code != 0):
    depth levels, with the contexts of the model's own autoregressive pass on
    phase 3's proxies (B·(N+1) = 3,232 rows) and on ragged row counts, for
    z ~ 0.6·N(0, 1), z = 0 and z = ±10, and time it per level;
-9. drive predict_humaniflow and the distribution-inference program again
-   with HFT_FUSED_LEVEL=1 (the fused-flow-level configuration: K5 once per
-   level) and hold them against phases 3-4's outputs for the same noise;
+9. drive predict_humaniflow, the distribution-inference program and the
+   3DPW protocol (N=10) again on the default route (HFT_FUSED_LEVEL unset:
+   under inference mode, K5 once per level) and hold them against phases
+   3-4's and 7's outputs for the same noise;
 10. drive uncropped-image predict at full width: 32 synthetic images of two
    sizes → predict_hrnet_batch (HRNet-W48 at 384×288, seeded random weights,
-   keypoint-box fallback) → the 256² crop → predict_humaniflow with the
-   fused level, N=100, with float32 and with bf16 HRNet convolutions; check
+   keypoint-box fallback) → the 256² crop → predict_humaniflow on the
+   default route (K5), N=100, with float32 and with bf16 HRNet convolutions; check
    GPU HRNet heatmaps and keypoints against the CPU on 2 images, and time it
    (img/s, and the split into HRNet, crops and predict);
 11. training: hold kernel K4 (raster) against its plain twin, bit for bit,
@@ -88,8 +89,8 @@ Phases, each of which raises on failure (exit code != 0):
 15. the non-default flows and the two CLIs of training and evaluation:
    (a) three configurations of the JAX factory's menu (affine coupling with
    the conditional linear PLU and flow BatchNorm, the masked spline with the
-   linear PLU, the masked affine with permutations), each with
-   HFT_FUSED_LEVEL=1 (K5 refuses them: zero launches): distribution
+   linear PLU, the masked affine with permutations), each on the default
+   route (K5 refuses them: zero launches): distribution
    inference at B=32, N=100 (K1, K2) and 3 train steps at B=72, 256²
    through the training renderer (K4, K2, K2's backward; finite losses,
    none skipped, the BatchNorm running statistics moved), timed beside
@@ -110,7 +111,8 @@ Phases, each of which raises on failure (exit code != 0):
    to the same runs in one process, and the mesh path's overhead (predict
    img/s, train step ms) against one process, in turns in the rank; (b) 2
    gloo ranks on the one card: the 1×2 sample split of distribution
-   inference (K1 at (32, 50) on each rank) held to phase 4, a train step at
+   inference on the default route (K5 once a level and K1 at (32, 50) on
+   each rank) held to phase 9, a train step at
    B=72 (36 a rank) and an SSP-3D batch (16 a rank) held to one process;
    K1, K2, K3 and K4 launched on every rank; (c) the predict, evaluate and
    train CLIs with --num_devices 1 (--sample_devices 1, -D 1) on phase
@@ -128,7 +130,8 @@ Phases, each of which raises on failure (exit code != 0):
    cli/run_evaluate.py -D 3dpw (N=10) on the prepared directory with phase
    15's checkpoint (finite per-frame metrics); frames/s of both CLIs.
 
-Phases 1-7 and 11-14 run with the fused level off.  Each path of phases 3, 4,
+Phases 9, 10, 15a and 16b's sample split take the default route; the others
+run the eager flow (HFT_FUSED_LEVEL=0), the reference.  Each path of phases 3, 4,
 6, 7, 9, 10, 11, 14, 15, 16 (in each rank) and 17 is driven with the kernel
 launch counters set to 0 just before it and read just after; launches made to compare a
 kernel with its twin, or to time it, are not counted.  Last, torch.profiler
@@ -150,6 +153,7 @@ import time
 B, N, V, IMG = 32, 100, 6890, 256
 FP32_PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 TF32_PEAK_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores (dense)
+FP64_PEAK_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 VERTS_ATOL = 2e-5  # kernel vs plain twin, metres
 MOMENTS_RTOL = 1e-5  # kernel vs plain twin, relative to each moment plane's max
@@ -662,31 +666,33 @@ def _level_inputs(model, proxy, seed):
 
 
 def _level_work(flow, rows, p, c_dim):
-    """(MLP products, other operations, bytes) that one K5 launch needs for
-    `rows` rows of p parts: per (row, part) and coupling, 2·in·out products
-    per dense layer, and 2·out for bias and ReLU and two splines; then the
-    radial tanh.  Bytes: z, ctx and x once, the p parts' weights once, the
-    part indices."""
+    """(MLP products, other float32 operations, float64 spline operations,
+    bytes) that one K5 launch needs for `rows` rows of p parts: per (row,
+    part) and coupling, 2·in·out products per dense layer, 2·out for bias and
+    ReLU, and two splines; then the radial tanh.  Bytes: z, ctx and x once,
+    the p parts' weights once, the part indices."""
     from humaniflow_torch.flows.cuda_level import _plan
 
     blocks, _ = _plan(flow)
-    products = rest = weights = 0
+    products = rest = splines = weights = 0
     for _, coupling in blocks:
         for w in coupling.hypernet.weights:
             out, inp = w.shape[1:]
             products += 2 * inp * out
             rest += 2 * out
             weights += out * inp + out
-        rest += 2 * SPLINE_OPS
+        splines += 2 * SPLINE_OPS
     rest += RADIAL_OPS
-    return rows * p * products, rows * p * rest, 4 * (rows * p * (3 + c_dim + 3) + p * weights) + 8 * p
+    return (rows * p * products, rows * p * rest, rows * p * splines,
+            4 * (rows * p * (3 + c_dim + 3) + p * weights) + 8 * p)
 
 
-def _level_bound_ms(products, rest, nbytes):
+def _level_bound_ms(products, rest, splines, nbytes):
     """(bound ms, bound_by) of K5 as it computes: the MLP's products three
-    times over (3xTF32) at the tensor cores' TF32 rate and the other
-    operations at the float32 rate, against the bytes at the memory rate."""
-    t_ops = 3 * products / TF32_PEAK_FLOPS + rest / FP32_PEAK_FLOPS
+    times over (3xTF32) at the tensor cores' TF32 rate, the splines at the
+    float64 rate and the other operations at the float32 rate, against the
+    bytes at the memory rate."""
+    t_ops = 3 * products / TF32_PEAK_FLOPS + rest / FP32_PEAK_FLOPS + splines / FP64_PEAK_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -704,7 +710,7 @@ def check_flow_level(model, proxy):
     levels = _level_inputs(model, proxy, seed=21)
     g = torch.Generator("cuda").manual_seed(22)
     worst = 0.0
-    call_ms, plain_ms, bounds, timing, work_total = [], [], [], [], [0, 0, 0]
+    call_ms, plain_ms, bounds, timing, work_total = [], [], [], [], [0, 0, 0, 0]
     with torch.inference_mode():
         for li, (parts, z_model, ctx) in enumerate(levels):
             rows, p, c_dim = ctx.shape
@@ -734,10 +740,10 @@ def check_flow_level(model, proxy):
             print(f"K5 flow_level level {li} (P={p}, rows={rows}, ragged 1/33/{rows + 7}): max_abs_err "
                   f"{max(errs):.3e}; call {call_ms[-1]:.4f} ms, twin {plain_ms[-1]:.4f} ms, bound {bounds[-1]:.5f} ms")
     bound, by = _level_bound_ms(*work_total)
-    products, rest, nbytes = work_total
+    products, rest, splines, nbytes = work_total
     print(f"K5 over one AR pass ({len(levels)} launches): calls {sum(call_ms):.4f} ms, twin {sum(plain_ms):.4f} ms, "
-          f"{products / 1e9:.3f} GFLOP of MLP products (3xTF32 on the tensor cores), {rest / 1e9:.3f} GFLOP "
-          f"else and {nbytes / 1e6:.2f} MB → bound {bound:.5f} ms ({by})")
+          f"{products / 1e9:.3f} GFLOP of MLP products (3xTF32 on the tensor cores), {splines / 1e9:.3f} GFLOP "
+          f"of float64 splines, {rest / 1e9:.3f} GFLOP else and {nbytes / 1e6:.2f} MB → bound {bound:.5f} ms ({by})")
     record = dict(
         name="flow_level", replaces="humaniflow_tpu/flows/pallas_level.py:237", max_abs_err=worst,
         plain_ms=sum(plain_ms), bound_ms=bound, bound_by=by, call_ms=sum(call_ms), ms_rows=len(levels[0][1]),
@@ -765,7 +771,13 @@ def time_flow_level(flow, record, timing):
 
 
 def _set_fused(on: bool):
-    os.environ["HFT_FUSED_LEVEL"] = "1" if on else "0"
+    """The route of the phases that follow: True the program's default (K5
+    when grad mode is off and the flow is one K5 takes), False the eager
+    flow (HFT_FUSED_LEVEL=0).  A rank spawned after it inherits it."""
+    if on:
+        os.environ.pop("HFT_FUSED_LEVEL", None)
+    else:
+        os.environ["HFT_FUSED_LEVEL"] = "0"
 
 
 def _uncropped_images(n, seed):
@@ -1789,8 +1801,8 @@ def _menu_cfg(cfg, transform_type, permute_type, batch_norm):
 
 
 def flow_menu(smpl, cfg, proxy, default_timings):
-    """Phase 15a: each menu configuration at full width, with
-    HFT_FUSED_LEVEL=1 (K5 refuses these flows, so they run eager):
+    """Phase 15a: each menu configuration at full width, on the default
+    route (K5 refuses these flows, so they run eager):
     distribution inference at B=32, N=100 and MENU_STEPS train steps at
     B=72, 256² through the training renderer; then one train step GPU
     against CPU with flow BatchNorm.  Returns the counted launches by path."""
@@ -2234,7 +2246,8 @@ def _mesh_rank_nccl(rank, device, cfg):
 
 def _mesh_rank_gloo(rank, device, cfg):
     """Phase 16b, a rank of 2 gloo ranks on the one card: the sample split of
-    distribution inference on a 1×2 mesh (K1 at (32, 50) on each rank), a
+    distribution inference on a 1×2 mesh on the default route (K5, and K1 at
+    (32, 50) on each rank), a
     data-parallel train step at TRAIN_B (36 a rank) and one SSP-3D batch (16
     a rank), each at full width."""
     import torch
@@ -2251,9 +2264,11 @@ def _mesh_rank_gloo(rank, device, cfg):
     proxy = build_proxy_representation(images, joints2d, conf, cfg)
     out, launches = {}, {}
     infer = parallel.make_sharded_inference_fn(model, smpl, mesh12, num_samples=N)
+    _set_fused(True)  # the sample split on the default route (K5); the rest of the rank eager
     _zero_counts()
     out["infer"] = [x.cpu() for x in infer(proxy, generator=torch.Generator("cuda").manual_seed(7))]
     launches["sample split, 1x2 mesh"] = _read_counts()
+    _set_fused(False)
     out["train"], out["train_grads"], launches["train step, 2 ranks"], _ = _mesh_train(cfg, smpl, mesh, 1)
     out["small_step"] = _mesh_small_step(cfg, mesh)
     out["ssp3d"], launches["SSP-3D batch, 2 ranks"] = _mesh_ssp3d(model, smpls, cfg, mesh)
@@ -2310,12 +2325,13 @@ def _hold_launches(name, every, needed):
             raise AssertionError(f"{name}: rank {rank} did not launch {[k for k, v in total.items() if not v]}")
 
 
-def multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, card, cli_files):
+def multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, infer_f, card, cli_files):
     """Phase 16: the parallel layer on the card.  (a) NCCL at world size 1
     (predict on a 1-D and a 1×1 mesh, the sharded inference program, one
     SSP-3D batch, MESH_STEPS train steps) held to the one-process paths;
-    (b) 2 gloo ranks on the one card (the 1×2 sample split held to phase 4,
-    a train step and an SSP-3D batch held to one process); then the three
+    (b) 2 gloo ranks on the one card (the 1×2 sample split on the default
+    route held to phase 9's (vertices, variance) `infer_f`, K5 once a level
+    on each rank; a train step and an SSP-3D batch held to one process); then the three
     CLIs with --num_devices 1 on phase 15's files.  Returns the ranks'
     launches by path."""
     import torch
@@ -2357,11 +2373,16 @@ def multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, card, cli_files)
     b = parallel.spawn(_mesh_rank_gloo, 2, "cuda", cfg, backend="gloo")
     wall_b = time.perf_counter() - t0
     verts, var = b["infer"]
-    print(f"16b sample split, 1x2 mesh (gloo, 2 ranks, K1 at ({B}, {N // 2}) each) vs phase 4: vertices within "
-          f"{float((verts - verts_pe.cpu()).abs().max()):.3e} m, variance within "
-          f"{float((var - vertex_var.cpu()).abs().max()):.3e} m^2")
-    torch.testing.assert_close(verts, verts_pe.cpu(), rtol=0, atol=VERTS_ATOL)
-    torch.testing.assert_close(var, vertex_var.cpu(), rtol=VAR_RTOL, atol=VAR_ATOL)
+    verts_f, var_f = (x.cpu() for x in infer_f)
+    print(f"16b sample split, 1x2 mesh (gloo, 2 ranks, K5 and K1 at ({B}, {N // 2}) each) vs phase 9: vertices "
+          f"within {float((verts - verts_f).abs().max()):.3e} m, variance within "
+          f"{float((var - var_f).abs().max()):.3e} m^2")
+    torch.testing.assert_close(verts, verts_f, rtol=0, atol=VERTS_ATOL)
+    torch.testing.assert_close(var, var_f, rtol=VAR_RTOL, atol=VAR_ATOL)
+    for rank, per_path in enumerate(b["launches"]):
+        if per_path["sample split, 1x2 mesh"]["flow_level"] != len(model.levels):
+            raise AssertionError(f"16b sample split: rank {rank} launched K5 "
+                                 f"{per_path['sample split, 1x2 mesh']['flow_level']} times, not once a level")
     _hold_train(f"16b train step at B={TRAIN_B} on 2 ranks ({TRAIN_B // 2} each, gloo)", b["train"],
                 b["train_grads"], ref_train[:1], ref_grads, encoder_grads=False)
     _hold_train("16b train step at B=2, 64² on 2 ranks (1 each, gloo)", *b["small_step"], *ref_small)
@@ -2698,9 +2719,9 @@ def _main() -> int:
     from humaniflow_torch.models import HumaniflowModel, smpl_forward, smpl_vertex_moments, synthetic_smpl
     from humaniflow_torch.pipelines import EVAL_METRICS_3DPW, EVAL_METRICS_SSP3D, predict_humaniflow
     from humaniflow_torch.utils.cuda_build import build_all
-    from humaniflow_torch.utils.profiling import cuda_ms, device_profile, wall_ms
+    from humaniflow_torch.utils.profiling import cuda_ms, device_profile, flow_route, wall_ms
 
-    _set_fused(False)  # phases 1-7: the default configuration
+    _set_fused(False)  # phases 1-7: the eager flow
 
     # ---- phase 1: the card and the build
     smi = subprocess.run(
@@ -2834,7 +2855,7 @@ def _main() -> int:
           f"metrics {split['metrics_ms']:.2f} ms")
 
     # ---- phase 7: the 3DPW protocol, B=32, N=10
-    _, path_launches["3DPW"], pw3d_img_s = run_protocol(model, smpls, cfg, EVAL_METRICS_3DPW, 10)
+    pw3d_final, path_launches["3DPW"], pw3d_img_s = run_protocol(model, smpls, cfg, EVAL_METRICS_3DPW, 10)
     if path_launches["3DPW"]["smpl_verts"] == 0:
         raise AssertionError("the 3DPW protocol did not launch K2")
     print(f"3DPW protocol B={B} N=10: {pw3d_img_s:.2f} img/s over {PROTOCOL_BATCHES - 1} batches after a warm-up")
@@ -2842,7 +2863,7 @@ def _main() -> int:
     # ---- phase 8: K5 against its plain twin on every depth level
     records["flow_level"], k5_timing = check_flow_level(model, proxy)
 
-    # ---- phase 9: the fused-flow-level configuration on the main path
+    # ---- phase 9: the default route on the main path (K5 under inference mode)
     _set_fused(True)
     _zero_counts()
     pred_f = predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
@@ -2873,6 +2894,16 @@ def _main() -> int:
     print(f"fused level: sample 0 vs separate point-estimate pass: max abs diff {sample0_f:.3e}")
     if not sample0_f <= SAMPLE0_ATOL:
         raise AssertionError(f"fused level: sample 0 is not the point estimate: {sample0_f}")
+    pw3d_f, c, _ = run_protocol(model, smpls, cfg, EVAL_METRICS_3DPW, 10)
+    path_launches["3DPW, fused level"] = c
+    if c["flow_level"] != PROTOCOL_BATCHES * len(model.levels):
+        raise AssertionError(f"the 3DPW protocol on the default route launched K5 {c['flow_level']} times, not once a "
+                             f"level of each of its {PROTOCOL_BATCHES} batches")
+    worst = max(abs(pw3d_f[m] - w) / max(abs(w), 1e-30) for m, w in pw3d_final.items())
+    print(f"3DPW protocol N=10 on the default route (K5, {c['flow_level']} launches) vs phase 7's eager flow: final "
+          f"metrics within {worst:.3e} relative")
+    if set(pw3d_f) != set(pw3d_final) or not worst <= METRIC_RTOL:
+        raise AssertionError(f"the 3DPW protocol on the default route moves its metrics by {worst} relative")
     turns = {"eager": [], "fused": []}
     for on in (False, True, True, False):  # in turns, on one card
         _set_fused(on)
@@ -2888,7 +2919,7 @@ def _main() -> int:
               f"inference {d_ms:.2f} ms, {B / d_ms * 1e3:.1f} img/s; model forward wall {f_ms:.2f} ms "
               f"(two turns: {', '.join(f'{r[0]:.2f}/{r[1]:.2f}/{r[2]:.2f}' for r in runs)})")
 
-    # ---- phase 10: uncropped-image predict, HRNet-W48 at 384×288, fused level
+    # ---- phase 10: uncropped-image predict, HRNet-W48 at 384×288, the default route (K5)
     ph = importlib.import_module("humaniflow_torch.pipelines.predict_hrnet")  # the module, not the function
 
     _set_fused(True)
@@ -2947,7 +2978,8 @@ def _main() -> int:
         path_launches.update(cli_launches)
 
         # ---- phase 16: the parallel layer (NCCL at world size 1, 2 gloo ranks on the card, the CLIs' flags)
-        path_launches.update(multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, card, (cli_root, ckpt)))
+        path_launches.update(multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, (verts_pe_f, vertex_var_f),
+                                          card, (cli_root, ckpt)))
 
         # ---- phase 17: data preparation (3DPW preprocessing, HRNet keypoints) to evaluation
         path_launches.update(prepare_pw3d(smpl, (cli_root, ckpt)))
@@ -2960,7 +2992,7 @@ def _main() -> int:
     for on in (False, True):
         _set_fused(on)
         prof = device_profile(lambda: model_forward(gen.manual_seed(9)), iters=5)
-        print(f"model forward, fused level {'on' if on else 'off'}: device busy {prof['device_busy_ms']:.2f} ms, "
+        print(f"model forward, {flow_route(model)}: device busy {prof['device_busy_ms']:.2f} ms, "
               f"{prof['launches']:.0f} kernel launches per batch")
     _set_fused(False)
     profile_optimise(model, smpl, pred)

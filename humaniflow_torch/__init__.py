@@ -8,9 +8,10 @@ module's counterpart is found by path.  The kernels of the ported paths
 are written by hand in CUDA for sm_90a: the SMPL kernels of distribution
 inference and evaluation (models/cuda_lbs.py, csrc/smpl_lbs.cu), the
 silhouette coverage kernel of SSP-3D evaluation (render/cuda_coverage.py,
-csrc/coverage.cu) and the fused flow level of the HFT_FUSED_LEVEL=1
-configuration (flows/cuda_level.py, csrc/flow_level.cu); everything else is
-plain PyTorch.
+csrc/coverage.cu) and the fused flow level that every autoregressive pass
+with grad mode off takes, for a flow it supports (flows/cuda_level.py,
+csrc/flow_level.cu);
+everything else is plain PyTorch.
 
 Devices: the entry points (predict_humaniflow, make_predict_fn,
 predict_hrnet_batch, evaluate_humaniflow, HumaniflowModel,

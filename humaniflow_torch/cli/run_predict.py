@@ -14,8 +14,9 @@ uncertainty, T-pose), the J2D-error-sorted sample grid `_samples.png`, the
 composite onto the original image `_uncrop.png` and the per-vertex variance
 scatter `_xyz_variance.png`.  Runs on CUDA unless --device names another
 device; without checkpoints it warns and uses seeded random weights.
-Images are read and written with OpenCV.  Setting HFT_FUSED_LEVEL=1 runs
-the flow through the fused level kernel.  --num_devices N runs distribution
+Images are read and written with OpenCV.  The flow runs through the fused
+level kernel K5, as every pass with grad mode off does; HFT_FUSED_LEVEL=0
+runs it eager.  --num_devices N runs distribution
 inference on N ranks, one process a device (NCCL on CUDA, gloo on the CPU;
 parallel/), each on its block of the images; with --sample_devices S as
 well, the ranks form a (N / S, S) ("data", "sample") mesh whose "sample"

@@ -16,10 +16,10 @@
 // No log-det.
 //
 // Bound on an H100: per (row, part) 2 couplings x 9,216 multiply-adds of
-// the 65-64-32-32-62 MLP plus ~400 spline operations per coupling; one AR
-// pass (8 launches, 23 parts, 3,232 rows) is ~2.8 GFLOP, 0.04 ms at the 67
-// TFLOP/s float32 peak outside the tensor cores, and moves ~22 MB (contexts
-// dominate), 0.007 ms at 3.35 TB/s: bound by operations.
+// the 65-64-32-32-62 MLP plus ~400 float64 spline operations per coupling;
+// one AR pass (8 launches, 23 parts, 3,232 rows) is ~2.8 GFLOP, 0.04 ms at
+// the 67 TFLOP/s float32 peak outside the tensor cores, and moves ~22 MB
+// (contexts dominate), 0.007 ms at 3.35 TB/s: bound by operations.
 //
 // Design.
 // * The wrapper (flows/cuda_level.py level_pack) packs each part's MLP once
@@ -47,6 +47,14 @@
 // * The last layer's 64 outputs (packed [w0 w1 h0 h1 d0 . d1 . l0 l1], 8
 //   apiece) go through the warp's scratch, [param][row] with a row stride of
 //   18, and all 32 lanes evaluate the splines: lane = (row, dimension).
+// * The splines run in float64 on the float32 parameters and input, rounded
+//   once to float32.  In float32 the spline's own rounding (softmax knots
+//   scaled to +-bound, the bin offset over its width) moves a level's output
+//   by ~4e-6, and a float32 spline on MLP outputs a rounding apart from the
+//   twin's lands as far from the twin; the eight chained levels carried that
+//   to 8.7e-6 in the rotations of a B = 32, N = 100 pass on an H100.  In float64 K5's
+//   own error is its MLP's, ~2e-7 a level, and its gap to the twin is the
+//   twin's float32 rounding (rotations 5.8e-6); it costs ~0.05 ms a pass.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -289,46 +297,48 @@ __device__ __forceinline__ void dense_layer_n(int nnt, const float* wl, int nks,
   }
 }
 
-__device__ __forceinline__ float softplus(float x) { return x > 20.f ? x : log1pf(expf(x)); }
+__device__ __forceinline__ double softplus(double x) { return x > 20.0 ? x : log1p(exp(x)); }
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+__device__ __forceinline__ double sigmoid(double x) { return 1.0 / (1.0 + exp(-x)); }
 
 // Knots of softmax-normalised bin sizes spanning [-bound, bound], the end
 // knots pinned exactly; the cumulative sum runs in the twin's order.
 // p[k * kScratchStride] is parameter column k of this lane's row.
-__device__ __forceinline__ void make_knots(const float* p, int col0, float bound, float min_frac,
-                                           float knot[kBins + 1]) {
-  float e[kBins];
-  float m = -INFINITY;
+__device__ __forceinline__ void make_knots(const float* p, int col0, double bound, double min_frac,
+                                           double knot[kBins + 1]) {
+  double e[kBins];
+  double m = -INFINITY;
 #pragma unroll
   for (int b = 0; b < kBins; ++b) {
     e[b] = p[(col0 + b) * kScratchStride];
-    m = fmaxf(m, e[b]);
+    m = fmax(m, e[b]);
   }
-  float s = 0.f;
+  double s = 0.0;
 #pragma unroll
   for (int b = 0; b < kBins; ++b) {
-    e[b] = expf(e[b] - m);
+    e[b] = exp(e[b] - m);
     s += e[b];
   }
-  float cum = 0.f;
+  double cum = 0.0;
   knot[0] = -bound;
 #pragma unroll
   for (int b = 0; b < kBins - 1; ++b) {
-    cum += min_frac + (1.f - min_frac * kBins) * (e[b] / s);
-    knot[b + 1] = 2.f * bound * cum - bound;
+    cum += min_frac + (1.0 - min_frac * kBins) * (e[b] / s);
+    knot[b + 1] = 2.0 * bound * cum - bound;
   }
   knot[kBins] = bound;
 }
 
 // Monotonic linear-rational spline of dimension j, forward, as
-// humaniflow_torch/flows/spline.py monotonic_rational_spline_forward.  The
+// humaniflow_torch/flows/spline.py monotonic_rational_spline_forward, in
+// float64 on the float32 input and parameters, rounded once at the end.  The
 // packed parameter columns: widths 8j + b, heights 16 + 8j + b, interior
 // derivatives 32 + 8j + k - 1 (knot k = 1..7), lambdas 48 + 8j + b.
-__device__ float spline_forward(float x, const float* p, int j, float bound) {
+__device__ float spline_forward(float x_in, const float* p, int j, float bound_in) {
+  const double x = x_in, bound = bound_in;
   const bool inside = x >= -bound && x <= bound;
-  const float xc = fminf(fmaxf(x, -bound), bound);
-  float kw[kBins + 1], kh[kBins + 1];
+  const double xc = fmin(fmax(x, -bound), bound);
+  double kw[kBins + 1], kh[kBins + 1];
   make_knots(p, 8 * j, bound, kMinBinWidth, kw);
   make_knots(p, 16 + 8 * j, bound, kMinBinHeight, kh);
 
@@ -338,7 +348,7 @@ __device__ float spline_forward(float x, const float* p, int j, float bound) {
   for (int b = 0; b <= kBins; ++b) idx += xc >= kw[b] + kEps ? 1 : 0;
   idx = min(max(idx, 0), kBins - 1);
 
-  float in_cw = kw[0], in_w = kw[1] - kw[0], in_ch = kh[0], in_h = kh[1] - kh[0];
+  double in_cw = kw[0], in_w = kw[1] - kw[0], in_ch = kh[0], in_h = kh[1] - kh[0];
 #pragma unroll
   for (int b = 1; b < kBins; ++b) {
     if (b == idx) {
@@ -348,31 +358,31 @@ __device__ float spline_forward(float x, const float* p, int j, float bound) {
       in_h = kh[b + 1] - kh[b];
     }
   }
-  const float in_delta = in_h / in_w;
+  const double in_delta = in_h / in_w;
   // derivatives at the bin's knots: the boundary constant at knots 0 and 8,
   // MIN_DERIVATIVE + softplus(d) inside
   const int dcol = 32 + 8 * j - 1;
-  const float d_lo =
+  const double d_lo =
       idx == 0 ? kBoundaryDerivative : kMinDerivative + softplus(p[(dcol + idx) * kScratchStride]);
-  const float d_hi =
+  const double d_hi =
       idx == kBins - 1 ? kBoundaryDerivative : kMinDerivative + softplus(p[(dcol + idx + 1) * kScratchStride]);
-  const float lam = kLambdaScale * sigmoid(p[(48 + 8 * j + idx) * kScratchStride]) + kMinLambda;
+  const double lam = kLambdaScale * sigmoid(p[(48 + 8 * j + idx) * kScratchStride]) + kMinLambda;
 
-  const float wb = sqrtf(d_lo / d_hi);
-  const float wc = (lam * d_lo + (1.f - lam) * wb * d_hi) / in_delta;
-  const float ya = in_ch;
-  const float yb = in_h + in_ch;
-  const float yc = ((1.f - lam) * ya + lam * wb * yb) / ((1.f - lam) + lam * wb);
-  const float theta = (xc - in_cw) / in_w;
-  float num, den;
+  const double wb = sqrt(d_lo / d_hi);
+  const double wc = (lam * d_lo + (1.0 - lam) * wb * d_hi) / in_delta;
+  const double ya = in_ch;
+  const double yb = in_h + in_ch;
+  const double yc = ((1.0 - lam) * ya + lam * wb * yb) / ((1.0 - lam) + lam * wb);
+  const double theta = (xc - in_cw) / in_w;
+  double num, den;
   if (theta <= lam) {
     num = ya * (lam - theta) + wc * yc * theta;
     den = (lam - theta) + wc * theta;
   } else {
-    num = wc * yc * (1.f - theta) + wb * yb * (theta - lam);
-    den = wc * (1.f - theta) + wb * (theta - lam);
+    num = wc * yc * (1.0 - theta) + wb * yb * (theta - lam);
+    den = wc * (1.0 - theta) + wb * (theta - lam);
   }
-  return inside ? num / den : x;
+  return inside ? static_cast<float>(num / den) : x_in;
 }
 
 __device__ __forceinline__ float pick3(float x0, float x1, float x2, int k) {

@@ -54,8 +54,22 @@ _PARAM_KINDS = ((0, 8), (16, 8), (32, 7), (46, 8))  # (first output, bins per di
 
 
 def supports_flow(flow: ConditionalFlow) -> bool:
-    """True when the flow matches the fused kernel's specialisation, by the
-    JAX package's checks: event_dim 3, blocks of [Permute,
+    """True when K5 runs the flow: the structure the kernel is specialised
+    to (`_matches_kernel`, the JAX package's checks) within every limit
+    that `level_params` enforces at the flow's own context width: couplings,
+    hypernet layers, widths and a block's shared memory.  The model routes a
+    pass to K5 by this, so a flow it accepts never makes the wrapper raise."""
+    if not _matches_kernel(flow):
+        return False
+    try:
+        _layout(flow, flow.transforms[1].hypernet.weights[0].shape[2] - 1)
+    except ValueError:
+        return False
+    return True
+
+
+def _matches_kernel(flow: ConditionalFlow) -> bool:
+    """The JAX package's checks: event_dim 3, blocks of [Permute,
     ConditionalSplineCoupling(count_bins=8, split 1+2, ≥ 1 hidden layer)]
     and an optional trailing ScaledRadialTanh."""
     ts = flow.transforms
@@ -165,13 +179,13 @@ def _input_features(layer: int, c_dim: int, prev_columns: np.ndarray) -> np.ndar
 
 def _coupling_index(dims, c_dim):
     """The gather index of one coupling's pack into its source row [0,
-    W_0.flatten(), b_0, W_1.flatten(), b_1, ...] (index 0: zero), and per
-    layer (offset, floats, k-steps, n-tiles).  A layer's block: the B
+    W_0.flatten(), b_0, W_1.flatten(), b_1, ...] (index 0: zero), its layers
+    laid out as `_layer_shapes` gives them.  A layer's block: the B
     fragments [k-step][n-tile pair][lane][4] with lane = 4g + t holding
     (B[t][g], B[t + 4][g]) of the pair's two n-tiles, B[k][n] = W[output of
     column 8·nt + n][input behind k]; then the bias by packed column; the
     first layer then x0's weight column (input c_dim) by packed column."""
-    parts, layers, src, prev = [], [], 1, None
+    parts, src, prev = [], 1, None
     lane = np.arange(32)
     g, t = lane // 4, lane % 4
     for li in range(len(dims) - 1):
@@ -189,12 +203,24 @@ def _coupling_index(dims, c_dim):
         block = [b_frag.reshape(-1), bias]
         if li == 0:
             block.append(np.where(cols >= 0, src + cols * n_in + c_dim, 0))
-        block = np.concatenate(block)
-        layers.append((sum(len(b) for b in parts), len(block), nks, nnt))
-        parts.append(block)
+        parts.append(np.concatenate(block))
         src += n_out * n_in + n_out
         prev = cols
-    return np.concatenate(parts), layers
+    return np.concatenate(parts)
+
+
+def _layer_shapes(dims, c_dim):
+    """Per layer of one coupling's pack, (floats, k-steps, n-tiles):
+    k-steps × n-tiles × 64 fragment floats and the bias by packed column
+    (hidden layers padded to a multiple of 16 columns, the last to 64), the
+    first layer also x0's column; its k-steps take the contexts 16 a pair,
+    a later layer's the previous layer's packed columns 8 a step."""
+    shapes = []
+    for li in range(len(dims) - 1):
+        cols = 64 if li == len(dims) - 2 else _round_up(dims[li + 1], 16)
+        nks = 2 * -(-c_dim // 16) if li == 0 else _round_up(dims[li], 16) // 8
+        shapes.append((nks * cols * 8 + cols * (2 if li == 0 else 1), nks, cols // 8))
+    return shapes
 
 
 def _coupling_dims(coupling, c, c_dim):
@@ -211,31 +237,51 @@ def _coupling_dims(coupling, c, c_dim):
     return dims
 
 
-def level_params(flow: ConditionalFlow, c_dim: int, device) -> _Params:
-    """The kernel's parameter block for `flow` with context width c_dim
-    (without the pack's address); raises on a structure or a width the
-    kernel does not take, or a hypernet tensor off `device`."""
-    if not supports_flow(flow):
+def _layout(flow: ConditionalFlow, c_dim: int):
+    """Each coupling's hypernet dims and per layer (offset, floats, k-steps,
+    n-tiles) of its pack, and the floats of the largest coupling's pack;
+    raises ValueError on a structure, a count or a width the kernel does not
+    take, or a level whose packs and scratch overflow a block's shared
+    memory (as csrc/flow_level.cu sizes it at launch)."""
+    if not _matches_kernel(flow):
         raise ValueError("the flow does not match the fused level kernel (see supports_flow)")
-    blocks, radius = _plan(flow)
+    blocks, _ = _plan(flow)
     if len(blocks) > MAX_COUPLINGS:
         raise ValueError(f"at most {MAX_COUPLINGS} couplings are supported, got {len(blocks)}")
     if not 0 < c_dim <= MAX_WIDTH:
         raise ValueError(f"the context width must lie in [1, {MAX_WIDTH}], got {c_dim}")
+    couplings = []
+    for c, (_, coupling) in enumerate(blocks):
+        dims = _coupling_dims(coupling, c, c_dim)
+        layers, off = [], 0
+        for n, nks, nnt in _layer_shapes(dims, c_dim):
+            layers.append((off, n, nks, nnt))
+            off += n
+        couplings.append((dims, layers))
+    floats = max(layers[-1][0] + layers[-1][1] for _, layers in couplings)
+    smem = 4 * (len(blocks) * floats + WARPS * SCRATCH_FLOATS)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"the level needs {smem} B of shared memory per block, more than {MAX_SHARED_BYTES}")
+    return couplings, floats
+
+
+def level_params(flow: ConditionalFlow, c_dim: int, device) -> _Params:
+    """The kernel's parameter block for `flow` with context width c_dim
+    (without the pack's address); raises where `_layout` does, or on a
+    hypernet tensor off `device`."""
+    couplings, floats = _layout(flow, c_dim)
+    blocks, radius = _plan(flow)
     prm = _Params()
     num_parts = flow.transforms[1].hypernet.weights[0].shape[0]
-    floats = max_tiles = 0
-    for c, (perm, coupling) in enumerate(blocks):
-        dims = _coupling_dims(coupling, c, c_dim)
+    max_tiles = 0
+    for c, ((perm, coupling), (dims, layers)) in enumerate(zip(blocks, couplings)):
         for li, (w, b) in enumerate(zip(coupling.hypernet.weights, coupling.hypernet.biases)):
             _check_tensor(f"coupling {c} weight {li}", w, device, (num_parts, dims[li + 1], dims[li]))
             _check_tensor(f"coupling {c} bias {li}", b, device, (num_parts, dims[li + 1]))
-        _, layers = _coupling_index(dims, c_dim)
         for li, (off, n, nks, nnt) in enumerate(layers):
             prm.layer_off[c][li], prm.layer_floats[c][li] = off, n
             prm.k_steps[c][li], prm.n_tiles[c][li] = nks, nnt
             max_tiles = max(max_tiles, nnt)
-        floats = max(floats, layers[-1][0] + layers[-1][1])
         for k in range(3):
             prm.perm[c][k] = perm[k]
         prm.bound[c] = coupling.bound
@@ -258,7 +304,7 @@ def level_pack(flow: ConditionalFlow, c_dim: int) -> torch.Tensor:
     ws0 = blocks[0][1].hypernet.weights[0]
     packs = []
     for c, (_, coupling) in enumerate(blocks):
-        idx, _ = _coupling_index(_coupling_dims(coupling, c, c_dim), c_dim)
+        idx = _coupling_index(_coupling_dims(coupling, c, c_dim), c_dim)
         src = torch.cat([ws0.new_zeros((ws0.shape[0], 1))]
                         + [t.reshape(t.shape[0], -1) for w, b in zip(coupling.hypernet.weights,
                                                                      coupling.hypernet.biases) for t in (w, b)], 1)
@@ -281,12 +327,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def smem_bytes(prm: _Params) -> int:
-    """Dynamic shared memory of a block (as csrc/flow_level.cu computes it
-    at launch): every coupling's pack and each warp's spline scratch."""
-    return 4 * (prm.n_couplings * prm.coupling_floats + WARPS * SCRATCH_FLOATS)
-
-
 _PLANS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()  # flow → {(c_dim, device): (key, _Params, pack)}
 
 
@@ -299,17 +339,14 @@ def _cache_key(flow: ConditionalFlow) -> tuple:
 
 
 def _cached_plan(flow: ConditionalFlow, c_dim: int, device) -> _Params:
-    """level_params with the pack's address, checked against the block's
-    shared-memory limit; built once per flow, context width and device, and
-    again when a hypernet tensor moves, changes shape or is written."""
+    """level_params with the pack's address; built once per flow, context
+    width and device, and again when a hypernet tensor moves, changes shape
+    or is written."""
     key = _cache_key(flow)
     plans = _PLANS.setdefault(flow, {})
     hit = plans.get((c_dim, device))
     if hit is None or hit[0] != key:
         prm = level_params(flow, c_dim, device)
-        smem = smem_bytes(prm)
-        if smem > MAX_SHARED_BYTES:
-            raise ValueError(f"the level needs {smem} B of shared memory per block, more than {MAX_SHARED_BYTES}")
         pack = level_pack(flow, c_dim)
         prm.packed = pack.data_ptr()
         hit = plans[(c_dim, device)] = (key, prm, pack)

@@ -175,15 +175,18 @@ class HumaniflowModel(nn.Module):
 
     def _fused_level_enabled(self) -> bool:
         """Whether the autoregressive pass routes each level's flow forward
-        through the fused level kernel K5 (flows/cuda_level.py): the JAX
-        package's switch, HFT_FUSED_LEVEL=1 (or "on"), and a flow that
-        `supports_flow` accepts.  Default off, as in the JAX package.  The
-        JAX model reads the variable when it traces; eager PyTorch has no
-        trace, so it is read on every call and a caller can toggle it.  On
+        through the fused level kernel K5 (flows/cuda_level.py): exactly
+        when grad mode is off, as under the predict and evaluate entries'
+        inference_mode, and `supports_flow` accepts the flow (its structure
+        and every limit of the kernel).  K5 has no backward, so a forward
+        under grad runs eager.  HFT_FUSED_LEVEL=0 forces the eager flow, the
+        reference the card tests hold K5 against.  The JAX package keeps its
+        switch off by default and reads it when it traces; eager PyTorch has
+        no trace, so the variable and grad mode are read on every call.  On
         CUDA the fused route launches K5; on the CPU its plain twin runs,
-        as the JAX package runs the Pallas kernel in interpret mode off the
-        TPU."""
-        if os.environ.get("HFT_FUSED_LEVEL", "auto") not in ("1", "on"):
+        the same `self.flow` call as the eager route, as the JAX package runs
+        the Pallas kernel in interpret mode off the TPU."""
+        if torch.is_grad_enabled() or os.environ.get("HFT_FUSED_LEVEL") == "0":
             return False
         return cuda_level.supports_flow(self.flow)
 
@@ -198,11 +201,6 @@ class HumaniflowModel(nn.Module):
         :return: (pose_so3 (..., 23, 3), pose_SO3 (..., 23, 3, 3))
         """
         fused = self._fused_level_enabled()
-        if fused and torch.is_grad_enabled():
-            raise RuntimeError(
-                "HFT_FUSED_LEVEL=1 under grad mode: the fused flow level (K5) has no backward, here or in "
-                "the JAX package; train with HFT_FUSED_LEVEL=0, or run inference under torch.no_grad()"
-            )
         with span("flow.sample"):
             batch_shape = isgc.shape[:-1]
             so3_buf = isgc.new_zeros(batch_shape + (self.num_bodyparts, 3))

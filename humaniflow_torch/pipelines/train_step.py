@@ -15,8 +15,9 @@ JAX step does; a skipped step leaves them too.
 
 SMPL runs through kernel K2 with its gradient (models/cuda_lbs.py
 `SMPLVerts`), so the joints-2D loss reaches the shape and the sampled
-rotations.  The fused flow level (HFT_FUSED_LEVEL=1) has no backward, and the
-model refuses it under grad mode.
+rotations.  The fused flow level K5 has no backward: the step's forward runs
+under grad mode, so its flow runs eager, and only the validation call (no
+grad) takes K5.
 
 Data parallel (a device mesh): each rank steps on its block of the batch, as
 JAX's GSPMD run does on one global batch.  The encoder's and the flow's

@@ -1,8 +1,8 @@
 """Where the time of distribution inference, evaluation and training goes on
 the card.
 
-    python -m humaniflow_torch.utils.profiling [--batch 32] [--samples 100] [--fused-level]
-    python -m humaniflow_torch.utils.profiling --protocol ssp3d|3dpw [--batch 32] [--fused-level]
+    python -m humaniflow_torch.utils.profiling [--batch 32] [--samples 100] [--eager-flow]
+    python -m humaniflow_torch.utils.profiling --protocol ssp3d|3dpw [--batch 32] [--eager-flow]
     python -m humaniflow_torch.utils.profiling --train [--batch 72]
     python -m humaniflow_torch.utils.profiling --compare PARENT_ROOT
     python -m humaniflow_torch.utils.profiling --plans
@@ -42,9 +42,9 @@ per call (torch.profiler), one JSON line per turn.  With --plans it times K2's
 forward at those row counts through each of its row groups, K4 through
 tiles of several key budgets and K1 at N = 96, 100 and 112.
 
---fused-level sets HFT_FUSED_LEVEL=1 for the run, so that the flow pass
-goes through the fused level kernel K5; run the script with and without it
-to compare the two configurations.
+The flow pass takes the program's default route, the fused level kernel K5
+in inference; --eager-flow sets HFT_FUSED_LEVEL=0 for the run, the eager
+flow.  Run it with and without the flag to compare the two routes.
 
 Needs a CUDA device; it exits non-zero without one.  The module also holds
 the JAX package's StageTimer, which times named stages of a program.
@@ -715,8 +715,17 @@ def protocol_breakdown(protocol: str, b: int):
     stages = [fn for name, fn in programs.items() if name != "k3_on_the_samples"]
     programs["whole_batch"] = lambda: [fn() for fn in stages]
     print(f"{protocol} protocol, B={b} N={n} on {torch.cuda.get_device_name(0)}, "
-          f"fused level {'on' if model._fused_level_enabled() else 'off'}")
+          f"{flow_route(model)}")
     _print_profiles(programs)
+
+
+def flow_route(model) -> str:
+    """The route of the flow pass of `model` in an inference call (grad mode
+    off), as models/humaniflow.py::_fused_level_enabled decides it."""
+    import torch
+
+    with torch.inference_mode():
+        return "fused level (K5)" if model._fused_level_enabled() else "eager flow"
 
 
 def train_breakdown(b: int):
@@ -767,11 +776,11 @@ def main(argv=None) -> int:
     parser.add_argument("--plans", action="store_true",
                         help="time K2's forward through every row group at the paths' row counts, K4 through "
                              "several tiles and K1 at N = 96, 100 and 112")
-    parser.add_argument("--fused-level", action="store_true",
-                        help="run the flow through the fused level kernel (HFT_FUSED_LEVEL=1)")
+    parser.add_argument("--eager-flow", action="store_true",
+                        help="run the flow eager (HFT_FUSED_LEVEL=0) instead of through the fused level kernel")
     args = parser.parse_args(argv)
-    if args.fused_level:
-        os.environ["HFT_FUSED_LEVEL"] = "1"
+    if args.eager_flow:
+        os.environ["HFT_FUSED_LEVEL"] = "0"
 
     import torch
 
@@ -844,7 +853,7 @@ def main(argv=None) -> int:
             "flow_pass_wall_ms": wall_ms(flows, 10),
         }
     print(f"B={b} N={n} on {torch.cuda.get_device_name(0)}, "
-          f"fused level {'on' if model._fused_level_enabled() else 'off'}")
+          f"{flow_route(model)}")
     print("forward split:", {k: round(v, 3) for k, v in split.items()})
     _print_profiles({"model_forward": forward, "distribution_inference": program})
     return 0

@@ -2,7 +2,12 @@
 the CPU: `supports_flow`, the level forward of every depth level (the JAX
 Pallas kernel in interpret mode and the JAX XLA flow against the port's
 plain twin, which is what K5 computes on the card) and the whole model with
-HFT_FUSED_LEVEL=1 on both sides, with the same weights and noise."""
+HFT_FUSED_LEVEL=1 on both sides, with the same weights and noise.  Then the
+port's routing rule: a pass takes the fused route exactly when grad mode is
+off and `supports_flow` accepts the flow (its structure and every limit the
+wrapper enforces); HFT_FUSED_LEVEL=0 forces the eager flow."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +22,7 @@ from humaniflow_torch.flows.factory import ConditionalFlow
 from humaniflow_torch.flows.factory import create_conditional_norm_flow as t_create_flow
 from humaniflow_torch.flows.transforms import Permute
 from humaniflow_torch.models import HumaniflowModel as TorchModel
+from humaniflow_torch.ops import so3_exp
 from humaniflow_torch.utils.convert_jax import params_from_jax
 from humaniflow_tpu.flows import pallas_level
 from humaniflow_tpu.flows.factory import create_conditional_norm_flow as j_create_flow
@@ -149,14 +155,7 @@ def test_autoregress_routes_each_level_through_the_wrapper(models, monkeypatch):
     level (on the CPU it computes the twin and counts no launch); with the
     switch off, never.  The switch is read on every call."""
     _, _, tm = models
-    calls = []
-    real = cuda_level.flow_forward_level
-
-    def spy(flow, z, ctx, parts):
-        calls.append(tuple(parts.tolist()))
-        return real(flow, z, ctx, parts)
-
-    monkeypatch.setattr(cuda_level, "flow_forward_level", spy)
+    calls = _spy_on_the_wrapper(monkeypatch)
     isgc = torch.randn((2, 4, tm.isgc_dim), generator=torch.Generator().manual_seed(0))
     before = cuda_level.LAUNCHES["flow_level"]
     with torch.no_grad():
@@ -179,10 +178,149 @@ def test_fused_model_matches_jax_fused_model(models, monkeypatch):
     key = jax.random.PRNGKey(12)
     shape_noise, levels = jax_noise(jm, key, B, N)
     monkeypatch.setenv("HFT_FUSED_LEVEL", "1")
-    assert tm._fused_level_enabled() and jm._fused_level_enabled()
+    assert jm._fused_level_enabled()
     want = jax.device_get(jm.apply(jparams, jnp.asarray(proxy), key=key, num_samples=N))
     with torch.inference_mode():
+        assert tm._fused_level_enabled()
         got = tm.apply(t(proxy), num_samples=N, base_noise=[t(z) for z in levels], shape_noise=t(shape_noise))
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=MODEL_ATOL, rtol=0, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def port_models():
+    """A default-flow and a menu-flow (additive coupling, which K5 refuses)
+    port model on the small config, seeded."""
+    _, tcfg = small_cfgs()
+    nf = dataclasses.replace(tcfg.MODEL.NORM_FLOW, TRANSFORM_TYPE="additive_coupling", PERMUTE_TYPE="permute")
+    menu = dataclasses.replace(tcfg.MODEL, NORM_FLOW=nf)
+    return {"default": TorchModel(tcfg.MODEL, device="cpu", generator=torch.Generator().manual_seed(5)),
+            "menu": TorchModel(menu, device="cpu", generator=torch.Generator().manual_seed(6))}
+
+
+def _spy_on_the_wrapper(monkeypatch):
+    calls = []
+    real = cuda_level.flow_forward_level
+
+    def spy(flow, z, ctx, parts):
+        calls.append(tuple(parts.tolist()))
+        return real(flow, z, ctx, parts)
+
+    monkeypatch.setattr(cuda_level, "flow_forward_level", spy)
+    return calls
+
+
+def _set_switch(monkeypatch, switch):
+    if switch is None:
+        monkeypatch.delenv("HFT_FUSED_LEVEL", raising=False)
+    else:
+        monkeypatch.setenv("HFT_FUSED_LEVEL", switch)
+
+
+@pytest.mark.parametrize("flow", ["default", "menu"])
+@pytest.mark.parametrize("grad", [False, True], ids=["no-grad", "grad"])
+@pytest.mark.parametrize("switch", [None, "0", "1"], ids=["unset", "0", "1"])
+def test_routing_rule(port_models, monkeypatch, switch, grad, flow):
+    """_autoregress calls flow_forward_level once per level exactly where
+    the rule routes the pass to K5, and never elsewhere: when grad mode is
+    off and supports_flow accepts the flow, unless HFT_FUSED_LEVEL=0; any
+    other value (1, the JAX package's switch) is the default."""
+    tm = port_models[flow]
+    assert cuda_level.supports_flow(tm.flow) == (flow == "default")
+    calls = _spy_on_the_wrapper(monkeypatch)
+    _set_switch(monkeypatch, switch)
+    isgc = torch.randn((2, 3, tm.isgc_dim), generator=torch.Generator().manual_seed(1))
+    noise = tm._draw_level_noise((2, 3), torch.Generator().manual_seed(2))
+    fused = flow == "default" and not grad and switch != "0"
+    with torch.set_grad_enabled(grad):
+        assert tm._fused_level_enabled() == fused
+        so3, rot = tm._autoregress(isgc, noise)
+    assert calls == (list(tm.levels) if fused else [])
+    assert so3.shape == (2, 3, 23, 3) and bool(torch.isfinite(rot).all())
+
+
+# Flows of the kind K5 is specialised to whose counts or widths it does not
+# hold: every limit of the wrapper, each as the model's config sets it.
+_BEYOND_K5 = {
+    "hidden-256": dict(TRANSFORM_NN_HIDDEN_DIMS=(256, 128)),
+    "context-256": dict(CONTEXT_DIM=256),
+    "9-layers": dict(TRANSFORM_NN_HIDDEN_DIMS=(16,) * 8),
+    "9-couplings": dict(NUM_TRANSFORMS=9),
+    "shared-memory": dict(TRANSFORM_NN_HIDDEN_DIMS=(128, 128, 128)),
+}
+
+
+@pytest.mark.parametrize("case", list(_BEYOND_K5))
+def test_a_flow_beyond_k5s_limits_routes_eager(monkeypatch, case):
+    """A default-kind flow that the wrapper would refuse (level_params or
+    the shared-memory check raise) is one supports_flow refuses too, so
+    under inference_mode with HFT_FUSED_LEVEL unset the pass runs eager."""
+    _, tcfg = small_cfgs()
+    nf = dataclasses.replace(tcfg.MODEL.NORM_FLOW, **_BEYOND_K5[case])
+    tm = TorchModel(dataclasses.replace(tcfg.MODEL, NORM_FLOW=nf), device="cpu",
+                    generator=torch.Generator().manual_seed(7))
+    assert cuda_level._matches_kernel(tm.flow) and not cuda_level.supports_flow(tm.flow)
+    with pytest.raises(ValueError):
+        cuda_level.level_params(tm.flow, nf.CONTEXT_DIM, torch.device("cpu"))
+    calls = _spy_on_the_wrapper(monkeypatch)
+    _set_switch(monkeypatch, None)
+    isgc = torch.randn((2, 3, tm.isgc_dim), generator=torch.Generator().manual_seed(8))
+    with torch.inference_mode():
+        assert not tm._fused_level_enabled()
+        _, rot = tm._autoregress(isgc, tm._draw_level_noise((2, 3), torch.Generator().manual_seed(9)))
+    assert calls == [] and bool(torch.isfinite(rot).all())
+
+
+@pytest.mark.parametrize("c_dim, hidden", [(8, (64, 32, 32)), (64, (64, 32, 32)), (100, (128, 7)), (128, (16,) * 7),
+                                           (5, (100,))])
+def test_layout_is_the_packs_layout(c_dim, hidden):
+    """_layout's per-layer floats (which size the kernel's shared memory and
+    offsets) are the blocks level_pack gathers, coupling by coupling."""
+    flow = t_create_flow(event_dim=3, context_dim=c_dim, num_transforms=2, num_parts=3,
+                         transform_hidden_dims=hidden, radial_tanh_radius=3.0)
+    couplings, floats = cuda_level._layout(flow, c_dim)
+    sizes = [layers[-1][0] + layers[-1][1] for _, layers in couplings]
+    assert floats == max(sizes)
+    for (dims, _), size in zip(couplings, sizes):
+        assert len(cuda_level._coupling_index(dims, c_dim)) == size
+    assert cuda_level.level_pack(flow, c_dim).shape == (3, 2, floats)
+
+
+def test_train_forward_with_the_switch_unset_runs_eager(port_models, monkeypatch):
+    """The train step's forward (grad on, train=True, the teacher-forced
+    contexts, samples) with HFT_FUSED_LEVEL unset: the eager flow, no
+    error, and a gradient that reaches the flow's weights."""
+    tm = TorchModel(port_models["default"].cfg, device="cpu")
+    tm.load_state_dict(port_models["default"].state_dict())
+    calls = _spy_on_the_wrapper(monkeypatch)
+    _set_switch(monkeypatch, None)
+    g = torch.Generator().manual_seed(3)
+    proxy = torch.rand((2, IMG, IMG, 18), generator=g)
+    pose = so3_exp(0.3 * torch.randn((2, 23, 3), generator=g))
+    glob = so3_exp(0.3 * torch.randn((2, 3), generator=g))
+    shape = torch.randn((2, 10), generator=g)
+    out = tm.apply(proxy, generator=g, num_samples=2, compute_for_loglik=True, shape_for_loglik=shape,
+                   pose_R_for_loglik=pose, glob_R_for_loglik=glob, train=True, grad_for_pose_point_est=True)
+    assert calls == []
+    loss = out["pose_rotmats_samples"].sum() + tm.pose_log_prob(pose, out["pose_flow_contexts_for_loglik"]).sum()
+    loss.backward()
+    hyper = tm.flow.transforms[1].hypernet.weights[0]
+    assert hyper.grad is not None and float(hyper.grad.abs().sum()) > 0
+
+
+def test_inference_default_route_is_the_eager_result_on_the_cpu(port_models, monkeypatch):
+    """Under inference_mode, HFT_FUSED_LEVEL unset (the fused route, whose
+    CPU twin is the flow's own call) gives every output bit for bit as 0."""
+    tm = port_models["default"]
+    calls = _spy_on_the_wrapper(monkeypatch)
+    proxy = torch.rand((2, IMG, IMG, 18), generator=torch.Generator().manual_seed(4))
+    outs = {}
+    for switch in (None, "0"):
+        _set_switch(monkeypatch, switch)
+        with torch.inference_mode():
+            outs[switch] = tm.apply(proxy, generator=torch.Generator().manual_seed(5), num_samples=3)
+    assert calls == list(tm.levels)
+    assert set(outs[None]) == set(outs["0"])
+    for k, v in outs["0"].items():
+        assert torch.equal(outs[None][k], v), k

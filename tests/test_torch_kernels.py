@@ -224,11 +224,11 @@ def test_coverage_wrapper_rejects_bad_inputs():
 LEVEL_ATOL = 2e-5
 
 
-def _flow_model():
+def _flow_model(seed=0):
     from humaniflow_torch.configs import get_humaniflow_cfg_defaults
     from humaniflow_torch.models import HumaniflowModel
 
-    return HumaniflowModel(get_humaniflow_cfg_defaults().MODEL, generator=torch.Generator().manual_seed(0))
+    return HumaniflowModel(get_humaniflow_cfg_defaults().MODEL, generator=torch.Generator().manual_seed(seed))
 
 
 def _level_inputs_cuda(p, rows, c, seed):
@@ -371,6 +371,41 @@ def test_fused_level_model_on_the_card(monkeypatch):
     assert cuda_level.LAUNCHES["flow_level"] == before + len(model.levels)
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=2e-4, msg=k)
+
+
+# The prediction cells' `rotations` limit (benchmark/traffic/crops_b32_n100.json).
+CELL_ROT_ATOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_default_route_matches_eager_at_the_prediction_cells_shape(monkeypatch, seed):
+    """apply(B=32, N=100) under inference_mode at the default widths: with
+    HFT_FUSED_LEVEL unset the pass takes K5, 8 launches, and its rotations
+    stay within the prediction cells' limit of HFT_FUSED_LEVEL=0's eager
+    flow.  Seeded U(±1/√fan_in) dense weights, as the benchmark draws them."""
+    _require_cuda()
+    from humaniflow_torch.flows import cuda_level
+
+    b, n = 32, 100
+    model = _flow_model(seed)
+    g = torch.Generator("cuda").manual_seed(10 + seed)
+    proxy = torch.rand((b, 256, 256, 18), generator=g, device="cuda")
+    noise = model._draw_level_noise((b, n), g)
+    shape_noise = torch.randn((b, n, model.cfg.NUM_SMPL_BETAS), generator=g, device="cuda")
+    kw = dict(num_samples=n, base_noise=noise, shape_noise=shape_noise)
+    with torch.inference_mode():
+        monkeypatch.setenv("HFT_FUSED_LEVEL", "0")
+        before = cuda_level.LAUNCHES["flow_level"]
+        want = model.apply(proxy, **kw)
+        assert cuda_level.LAUNCHES["flow_level"] == before
+        monkeypatch.delenv("HFT_FUSED_LEVEL")
+        got = model.apply(proxy, **kw)
+        torch.cuda.synchronize()
+    assert cuda_level.LAUNCHES["flow_level"] == before + len(model.levels) == before + 8
+    for k in ("pose_rotmats_point_est", "pose_rotmats_samples"):
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=CELL_ROT_ATOL, msg=k)
+
 
 
 # K4 (raster): kernel against its plain twin, bit for bit in depth, winners,

@@ -209,10 +209,18 @@ def test_train_mode_batchnorm_matches_flax(pair):
 
 
 def test_fused_level_refuses_grad_mode(pair, monkeypatch):
+    """K5 has no backward: under grad mode the fused route is not taken, even
+    with the JAX package's switch HFT_FUSED_LEVEL=1 set, and the pass runs
+    the eager flow, whose samples carry a gradient to the flow's weights."""
+    from humaniflow_torch.flows import cuda_level
+
     _, _, tm, _, _ = pair
     monkeypatch.setenv("HFT_FUSED_LEVEL", "1")
-    with pytest.raises(RuntimeError, match="no backward"):
-        tm.apply(t(_batch(5)["proxy"]), num_samples=2, generator=torch.Generator().manual_seed(0))
+    calls = []
+    monkeypatch.setattr(cuda_level, "flow_forward_level", lambda *a: calls.append(a))
+    assert not tm._fused_level_enabled()
+    out = tm.apply(t(_batch(5)["proxy"]), num_samples=2, generator=torch.Generator().manual_seed(0))
+    assert calls == [] and out["pose_rotmats_samples"].requires_grad
 
 
 # ------------------------------------------------------------ K2 gradient
