@@ -2943,7 +2943,7 @@ def _main() -> int:
         splits = [uncropped_predict(model, smpl, cfg, hrnet, uimages, seed=33)[1] for _ in range(3)]
         split = {k: sum(sp[k] for sp in splits) / len(splits) for k in splits[0]}
         total = sum(split.values())
-        forward_ms = cuda_ms(lambda: ph._hrnet_keypoints(hrnet, out["cropped_images"]), 3)
+        forward_ms = cuda_ms(lambda: ph.crop_keypoints(hrnet, out["cropped_images"]), 3)
         flops = _conv_flops(hrnet, out["cropped_images"])
         print(f"uncropped predict, HRNet {name}, B={B} N={N}: {B / total * 1e3:.2f} img/s ({total:.2f} ms/batch: "
               f"HRNet stage {split['hrnet']:.2f} ms over {passes} passes (one normalise → HRNet → decode pass "

@@ -15,7 +15,7 @@ everything else is plain PyTorch.
 
 Devices: the entry points (predict_humaniflow, make_predict_fn,
 predict_hrnet_batch, evaluate_humaniflow, HumaniflowModel,
-PoseHighResolutionNet, TexturedIUVRenderer, synthetic_smpl, SMPLModel.to,
+PoseHighResolutionNet, ViTPose, TexturedIUVRenderer, synthetic_smpl, SMPLModel.to,
 the predict CLI) run on CUDA unless the caller passes device="cpu", and
 raise when CUDA is absent instead of falling back.
 
@@ -25,5 +25,6 @@ TF32.  The encoder and Canny convolutions run under
 fp32_convolutions), and the port leaves
 `torch.backends.cuda.matmul.allow_tf32` at its default, False, so matmuls
 and einsums are full float32.  The kernels use float32 FMAs only.  HRNet
-runs its convolutions in bf16 only when asked (dtype=torch.bfloat16).
+and ViTPose, the keypoint nets, run their convolutions and matrix products
+in bf16 only when asked (dtype=torch.bfloat16).
 """

@@ -42,7 +42,7 @@ def main(argv=None):
     import numpy as np
 
     from ..models.hrnet import PoseHighResolutionNet
-    from ..pipelines.predict_hrnet import HRNET_INPUT_WH, _hrnet_keypoints
+    from ..pipelines.predict_hrnet import crop_keypoints, keypoint_sizes
     from ..utils.load_reference import load_hrnet_checkpoint
 
     hrnet = PoseHighResolutionNet(device=device, generator=torch.Generator().manual_seed(0))
@@ -53,7 +53,7 @@ def main(argv=None):
 
     fnames = sorted(f for f in os.listdir(args.frames_dir) if f.endswith((".png", ".jpg")))
     results = np.zeros((len(fnames), 17, 3), np.float32)
-    w_in, h_in = HRNET_INPUT_WH  # imported at call time, as the JAX script does
+    (w_in, h_in), _ = keypoint_sizes(hrnet)  # read at call time, as the JAX script does
     for start in range(0, len(fnames), args.batch_size):
         chunk = fnames[start : start + args.batch_size]
         imgs = np.zeros((len(chunk), h_in, w_in, 3), np.float32)
@@ -64,7 +64,7 @@ def main(argv=None):
             imgs[i] = cv2.resize(img, (w_in, h_in)) / 255.0
             # keypoints come out in HRNet-input pixels; map them to frame pixels
             scales[i] = [ow / w_in, oh / h_in]
-        kps, confs = _hrnet_keypoints(hrnet, torch.from_numpy(imgs).to(device))
+        kps, confs = crop_keypoints(hrnet, torch.from_numpy(imgs).to(device))
         results[start : start + len(chunk), :, :2] = kps.cpu().numpy() * scales[:, None, :]
         results[start : start + len(chunk), :, 2] = confs.cpu().numpy()
         if start % (args.batch_size * 10) == 0:

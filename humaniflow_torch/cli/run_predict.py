@@ -2,11 +2,13 @@
 
     python -m humaniflow_torch.cli.run_predict -I images/ -S out/ \\
         -C humaniflow_weights.tar --hrnet_checkpoint pose_hrnet_w48_384x288.pth \\
+        [--keypoint_model vitpose_h --vitpose_checkpoint vitpose-h.pth] \\
         [--num_devices 4 [--sample_devices 2]]
 
 Person box (optional torchvision detector, else the whole image refined by
-the keypoint-box fallback) → HRNet-W48 keypoints → the square crop of the
-HRNet crop at the proxy size → HuManiFlow distribution inference → SMPL
+the keypoint-box fallback) → keypoints (HRNet-W48 at 384×288, or ViTPose-H
+at 256×192 with --keypoint_model vitpose_h) → the square crop of the
+keypoint net's crop at the proxy size → HuManiFlow distribution inference → SMPL
 meshes and per-vertex uncertainty → one `<image>_pred.npz` per image.  With
 -V (all of them), -VS, -VU or -VXYZ it also writes visualisations: the
 `<image>_vis.png` point-estimate figure (input crop, four views coloured by
@@ -20,7 +22,7 @@ runs it eager.  --num_devices N runs distribution
 inference on N ranks, one process a device (NCCL on CUDA, gloo on the CPU;
 parallel/), each on its block of the images; with --sample_devices S as
 well, the ranks form a (N / S, S) ("data", "sample") mesh whose "sample"
-axis splits the N-sample SMPL stage.  The HRNet stage, the crops, the files
+axis splits the N-sample SMPL stage.  The keypoint stage, the crops, the files
 and the figures run on rank 0.  --trace_spans PATH records the program's
 spans (utils/tracing.py) through the run and writes their summary to PATH
 as JSON (rank 0's with --num_devices).
@@ -42,8 +44,13 @@ def main(argv=None):
     parser.add_argument("--hrnet_checkpoint", type=str, default=None,
                         help="the reference's HRNet-W48 .pth, or the hrnet_params.pt that "
                              "cli/convert_model_files.py writes")
+    parser.add_argument("--keypoint_model", choices=["hrnet_w48", "vitpose_h"], default="hrnet_w48",
+                        help="the keypoint net in front of HuManiFlow: HRNet-W48 (384x288) or ViTPose-H (256x192)")
+    parser.add_argument("--vitpose_checkpoint", type=str, default=None,
+                        help="ViTPose-H's released mmpose .pth (ViTPose_huge_coco_256x192)")
     parser.add_argument("--hrnet_dtype", choices=["bf16", "f32"], default="bf16",
-                        help="HRNet convolution dtype (BatchNorm and heatmaps stay float32)")
+                        help="the keypoint net's dtype of convolutions and matrix products (BatchNorm, LayerNorm, "
+                             "the residual stream and the heatmaps stay float32)")
     parser.add_argument("--num_samples", "-N", "--num_pred_samples", "-NP", dest="num_samples", type=int, default=50)
     parser.add_argument("--use_detector", action="store_true",
                         help="person boxes from torchvision's Mask-RCNN (CPU), when installed")
@@ -157,24 +164,40 @@ def _predict(args, device, mesh=None):
         _visualise(args, cfg, pred, crop["rgb"], hr, fnames, vis_samples, vis_uncrop, vis_xyz, device)
 
 
+def _keypoint_net(args, device):
+    """The keypoint net that --keypoint_model names, with its checkpoint."""
+    import torch
+
+    from ..models import vitpose
+    from ..models.hrnet import PoseHighResolutionNet
+    from ..utils.load_reference import load_hrnet_checkpoint, load_vitpose_checkpoint
+
+    dtype = torch.bfloat16 if args.hrnet_dtype == "bf16" else None
+    if args.keypoint_model == "vitpose_h":
+        net = vitpose.ViTPose(**vitpose.VITPOSE_H, dtype=dtype, device=device)
+        checkpoint, load, label = args.vitpose_checkpoint, load_vitpose_checkpoint, "ViTPose"
+    else:
+        net = PoseHighResolutionNet(dtype=dtype, device=device)
+        checkpoint, load, label = args.hrnet_checkpoint, load_hrnet_checkpoint, "HRNet"
+    if checkpoint:
+        load(checkpoint, net)
+    else:
+        print(f"WARNING: no {label} checkpoint, using random init")
+    return net
+
+
 def _hrnet_crops(args, cfg, device):
-    """HRNet keypoints of the images of -I, then the square centre crop of
-    each HRNet crop at the proxy size: (file names, the HRNet outputs, the
-    crops)."""
+    """Keypoints of the images of -I, then the square centre crop of each
+    keypoint net's crop at the proxy size: (file names, the keypoint stage's
+    outputs, the crops)."""
     import cv2
     import numpy as np
     import torch
 
     from ..data.image_ops import batch_crop_affine
-    from ..models.hrnet import PoseHighResolutionNet
-    from ..pipelines.predict_hrnet import HRNET_INPUT_WH, predict_hrnet_batch
-    from ..utils.load_reference import load_hrnet_checkpoint
+    from ..pipelines.predict_hrnet import keypoint_sizes, predict_hrnet_batch
 
-    hrnet = PoseHighResolutionNet(dtype=torch.bfloat16 if args.hrnet_dtype == "bf16" else None, device=device)
-    if args.hrnet_checkpoint:
-        load_hrnet_checkpoint(args.hrnet_checkpoint, hrnet)
-    else:
-        print("WARNING: no HRNet checkpoint, using random init")
+    hrnet = _keypoint_net(args, device)
     os.makedirs(args.save_dir, exist_ok=True)
     fnames = sorted(f for f in os.listdir(args.image_dir) if f.endswith((".png", ".jpg", ".jpeg")))
     raw_images = [
@@ -186,7 +209,7 @@ def _hrnet_crops(args, cfg, device):
         keypoint_bbox_fallback=not args.cropped_images, device=device,
     )
     n, wh = len(fnames), cfg.DATA.PROXY_REP_SIZE
-    in_w, in_h = HRNET_INPUT_WH
+    (in_w, in_h), _ = keypoint_sizes(hrnet)
     side = max(in_w, in_h)
     crop = batch_crop_affine(
         (wh, wh), rgb=hr["cropped_images"], joints2d=hr["joints2D"],

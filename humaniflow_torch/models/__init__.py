@@ -14,6 +14,7 @@ from .smpl import (
     smpl_vertex_moments,
     synthetic_smpl,
 )
+from .vitpose import ViTPose
 
 __all__ = [
     "CannyEdgeDetector",
@@ -25,6 +26,7 @@ __all__ = [
     "ResNet",
     "SMPLModel",
     "SMPL_PARENTS",
+    "ViTPose",
     "convert_smpl_pkl",
     "get_kp_locations_confs_from_heatmaps",
     "immediate_parent_to_all_ancestors",

@@ -37,8 +37,8 @@ NUM_JOINTS = 17
 class Conv(nn.Conv2d):
     """A convolution that computes in the network's dtype (None: float32)."""
 
-    def __init__(self, in_ch, out_ch, k, stride=1, bias=False, dtype=None):
-        super().__init__(in_ch, out_ch, k, stride, padding=k // 2, bias=bias)
+    def __init__(self, in_ch, out_ch, k, stride=1, bias=False, dtype=None, padding=None):
+        super().__init__(in_ch, out_ch, k, stride, padding=k // 2 if padding is None else padding, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):

@@ -3,7 +3,10 @@
 The PyTorch counterpart of `humaniflow_tpu/utils/convert_torch.py`: the
 reference's HuManiFlow `.tar` (`humaniflow_weights.tar`) and HRNet-W48 `.pth`
 (`pose_hrnet_w48_384x288.pth`) name their tensors after the reference's
-module tree; these loaders map those names onto the port's parameters.  Both
+module tree; these loaders map those names onto the port's parameters.
+ViTPose's mmpose checkpoint (`{"state_dict": ...}`, `backbone.*` and
+`keypoint_head.*`) needs no renaming: models/vitpose.py keeps mmpose's
+module tree.  Both
 sides are PyTorch, so convolution and linear weights keep their layouts;
 what changes is the naming and, for the HuManiFlow model, the stacking:
 
@@ -37,6 +40,7 @@ import torch
 from ..flows.autoregressive import FlowBatchNorm
 from ..models.hrnet import PoseHighResolutionNet
 from ..models.humaniflow import HumaniflowModel
+from ..models.vitpose import ViTPose
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -222,3 +226,19 @@ def load_hrnet_checkpoint(path: str, hrnet: PoseHighResolutionNet) -> PoseHighRe
     else:
         _load_state(hrnet, hrnet_state_from_reference(_reference_state_dict(blob), hrnet))
     return hrnet
+
+
+
+def load_vitpose_checkpoint(path: str, net: ViTPose) -> ViTPose:
+    """Load a ViTPose checkpoint into `net`, in place; returns it: mmpose's
+    file (the tensors under `state_dict`, beside `meta`) or a raw state dict,
+    in mmpose's names (`backbone.patch_embed.proj`, `backbone.pos_embed`,
+    `backbone.blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,mlp.fc2}`,
+    `backbone.last_norm`, `keypoint_head.deconv_layers.{0,1,3,4}`,
+    `keypoint_head.final_layer`), which are the port's.  Strict as the
+    HRNet loader: a tensor missing or left unused raises KeyError, a shape
+    mismatch ValueError."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    sd = blob["state_dict"] if isinstance(blob, dict) and "state_dict" in blob else blob
+    _load_state(net, {k: v.detach().cpu() for k, v in sd.items()})
+    return net
