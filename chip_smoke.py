@@ -40,11 +40,14 @@ Phases, each of which raises on failure (exit code != 0):
 9. drive predict_humaniflow, the distribution-inference program and the
    3DPW protocol (N=10) again on the default route (HFT_FUSED_LEVEL unset:
    under inference mode, K5 once per level) and hold them against phases
-   3-4's and 7's outputs for the same noise;
+   3-4's and 7's outputs for the same noise; predict_humaniflow's first call
+   there captures its CUDA graph, and a second call, a replay, is held bit
+   for bit to it;
 10. drive uncropped-image predict at full width: 32 synthetic images of two
    sizes → predict_hrnet_batch (HRNet-W48 at 384×288, seeded random weights,
    keypoint-box fallback) → the 256² crop → predict_humaniflow on the
-   default route (K5), N=100, with float32 and with bf16 HRNet convolutions; check
+   default route (K5; a replay of phase 9's graph), N=100, with float32 and
+   with bf16 HRNet convolutions; check
    GPU HRNet heatmaps and keypoints against the CPU on 2 images, and time it
    (img/s, and the split into HRNet, crops and predict);
 11. training: hold kernel K4 (raster) against its plain twin, bit for bit,
@@ -134,9 +137,12 @@ Phases 9, 10, 15a and 16b's sample split take the default route; the others
 run the eager flow (HFT_FUSED_LEVEL=0), the reference.  Each path of phases 3, 4,
 6, 7, 9, 10, 11, 14, 15, 16 (in each rank) and 17 is driven with the kernel
 launch counters set to 0 just before it and read just after; launches made to compare a
-kernel with its twin, or to time it, are not counted.  Last, torch.profiler
-counts the kernel launches of one call of K2's backward and takes the
-kernels' own device ms (K1 and K4 beside their bounds).  Prints one
+kernel with its twin, or to time it, are not counted; a replay of
+distribution inference's CUDA graph (phase 9's second call, phase 10)
+launches from no wrapper and is counted by `graph_replays`.  Last,
+torch.profiler counts K5's and K2's kernels inside one such replay and the
+kernel launches of one call of K2's backward, and takes the kernels' own
+device ms (K1 and K4 beside their bounds).  Prints one
 {"kernels": [...]} line, then the card line as nvidia-smi gives it, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the humaniflow_torch
 package beside it, it exits non-zero and prints no result.
@@ -363,6 +369,19 @@ def _read_counts():
     for counts in _all_counts():
         out.update(counts)
     return out
+
+
+def _graph_counts(fn):
+    """fn() with tracing on: its result, and the graph captures and replays
+    of distribution inference that it made (pipelines/predict.py)."""
+    from humaniflow_torch.utils import tracing
+
+    tracing.reset()
+    with tracing.tracing():
+        out = fn()
+    counters = tracing.summary().get("dist_infer", {}).get("counters", {})
+    tracing.reset()
+    return out, {k: counters.get(k, 0) for k in ("graph_captures", "graph_replays")}
 
 
 def _posed_screen(renderer, smpl, b, seed):
@@ -2719,7 +2738,7 @@ def _main() -> int:
     from humaniflow_torch.models import HumaniflowModel, smpl_forward, smpl_vertex_moments, synthetic_smpl
     from humaniflow_torch.pipelines import EVAL_METRICS_3DPW, EVAL_METRICS_SSP3D, predict_humaniflow
     from humaniflow_torch.utils.cuda_build import build_all
-    from humaniflow_torch.utils.profiling import cuda_ms, device_profile, flow_route, wall_ms
+    from humaniflow_torch.utils.profiling import cuda_ms, device_profile, flow_route, kernel_counts, wall_ms
 
     _set_fused(False)  # phases 1-7: the eager flow
 
@@ -2866,9 +2885,19 @@ def _main() -> int:
     # ---- phase 9: the default route on the main path (K5 under inference mode)
     _set_fused(True)
     _zero_counts()
-    pred_f = predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
-                                generator=torch.Generator("cuda").manual_seed(7))
+    pred_f, graph = _graph_counts(lambda: predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
+                                                             generator=torch.Generator("cuda").manual_seed(7)))
     path_launches["predict, fused level"] = _read_counts()
+    if graph != {"graph_captures": 1, "graph_replays": 0}:
+        raise AssertionError(f"predict's first call on the default route did not capture its graph: {graph}")
+    # the same call again: a replay of that graph, bit for bit the capture's (eager) outputs
+    pred_r, graph = _graph_counts(lambda: predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
+                                                             generator=torch.Generator("cuda").manual_seed(7)))
+    if graph != {"graph_captures": 0, "graph_replays": 1}:
+        raise AssertionError(f"predict's second call on the default route did not replay its graph: {graph}")
+    for k in pred_f:
+        if not torch.equal(pred_r[k], pred_f[k]):
+            raise AssertionError(f"the graph's replay moves {k} from the capture's eager outputs")
     _zero_counts()
     verts_pe_f, vertex_var_f = distribution_inference(7)
     path_launches["distribution inference, fused level"] = _read_counts()
@@ -2879,13 +2908,15 @@ def _main() -> int:
                                  f"levels), K2 {c['smpl_verts']} times")
     if path_launches["distribution inference, fused level"]["smpl_moments"] == 0:
         raise AssertionError("the fused distribution-inference program did not launch K1")
-    diffs = {k: float((pred_f[k] - pred[k]).abs().max())
-             for k in ("pose_rotmats_point_est", "pose_rotmats_samples", "verts_point_est", "verts_samples")}
-    print("fused vs eager flow, same noise, max abs diff: " + ", ".join(f"{k} {d:.3e}" for k, d in diffs.items()))
-    for k, d in diffs.items():
-        tol = FUSED_ROT_ATOL if "rotmats" in k else SLICE_ATOL
-        if not d <= tol:
-            raise AssertionError(f"the fused level moves {k} by {d} > {tol}")
+    for route, got in (("fused", pred_f), ("fused, graph replay", pred_r)):
+        diffs = {k: float((got[k] - pred[k]).abs().max())
+                 for k in ("pose_rotmats_point_est", "pose_rotmats_samples", "verts_point_est", "verts_samples")}
+        print(f"{route} vs eager flow, same noise, max abs diff: "
+              + ", ".join(f"{k} {d:.3e}" for k, d in diffs.items()))
+        for k, d in diffs.items():
+            tol = FUSED_ROT_ATOL if "rotmats" in k else SLICE_ATOL
+            if not d <= tol:
+                raise AssertionError(f"the fused level ({route}) moves {k} by {d} > {tol}")
     torch.testing.assert_close(verts_pe_f, verts_pe, rtol=0, atol=SLICE_ATOL)
     torch.testing.assert_close(vertex_var_f, vertex_var, rtol=FUSED_VAR_RTOL, atol=VAR_ATOL)
     with torch.inference_mode():
@@ -2927,10 +2958,10 @@ def _main() -> int:
     for name, dtype in (("float32", None), ("bf16", torch.bfloat16)):
         hrnet = _damped_hrnet(dtype=dtype)
         _zero_counts()
-        out, _, passes = uncropped_predict(model, smpl, cfg, hrnet, uimages, seed=32)
-        counts = path_launches[f"uncropped predict, HRNet {name}"] = _read_counts()
-        if counts["flow_level"] == 0 or counts["smpl_verts"] == 0:
-            raise AssertionError(f"uncropped predict ({name}) did not launch K5 and K2: {counts}")
+        (out, _, passes), graph = _graph_counts(lambda: uncropped_predict(model, smpl, cfg, hrnet, uimages, seed=32))
+        path_launches[f"uncropped predict, HRNet {name}"] = _read_counts()
+        if graph != {"graph_captures": 0, "graph_replays": 1}:  # its K5 and K2 kernels: the profiler, last
+            raise AssertionError(f"uncropped predict ({name}) did not replay phase 9's graph: {graph}")
         for k, shape in {**shapes, "cropped_images": (B, 384, 288, 3), "joints2D": (B, 17, 2)}.items():
             if tuple(out[k].shape) != shape:
                 raise AssertionError(f"uncropped predict: {k} has shape {tuple(out[k].shape)}, expected {shape}")
@@ -2989,6 +3020,16 @@ def _main() -> int:
     # slower for the rest of the process.  K5's device time per level, then
     # the forward's device time and launches per batch in both settings.
     time_flow_level(model.flow, records["flow_level"], k5_timing)
+    _set_fused(True)  # the kernels inside one replay of phase 9's graph, which phase 10 replays too
+
+    def predict_f():
+        return predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N, generator=gen.manual_seed(8))
+
+    predict_f()  # the graph, captured again if a later phase's shapes pushed it out
+    seen, graph = _graph_counts(lambda: kernel_counts(predict_f, ("flow_level_kernel", "smpl_verts_kernel")))
+    print(f"one replay of distribution inference's graph, kernels by name (torch.profiler): {seen}")
+    if graph["graph_captures"] or seen != {"flow_level_kernel": len(model.levels), "smpl_verts_kernel": 3}:
+        raise AssertionError(f"a replay of the graph did not run K5 once a level and K2 3 times: {seen}, {graph}")
     for on in (False, True):
         _set_fused(on)
         prof = device_profile(lambda: model_forward(gen.manual_seed(9)), iters=5)

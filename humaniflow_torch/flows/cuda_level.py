@@ -24,7 +24,9 @@ CUDA tensors it launches K5, or raises on a wrong dtype, device, layout,
 shape, flow structure or a width above what the kernel holds; it never falls
 back.  K5 has no backward (nor has the JAX kernel): on CUDA it raises when
 grad mode is on and z, ctx or the flow's weights require grad.  `LAUNCHES`
-counts its kernel launches, which the spans of utils/tracing.py read.
+counts its kernel launches, which the spans of utils/tracing.py read; a
+launch recorded into a CUDA graph's capture is not counted (it runs at the
+graph's replays, which the device trace sees).
 """
 
 import ctypes
@@ -378,5 +380,6 @@ def flow_forward_level(flow: ConditionalFlow, z, ctx, parts):
                                       int(ctx_vec), ctypes.byref(prm), stream)
     if rc != 0:
         raise RuntimeError(f"flow_level_launch failed with CUDA error {rc}")
-    LAUNCHES["flow_level"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES["flow_level"] += 1
     return out

@@ -26,8 +26,10 @@ CPU.  For CUDA tensors it launches the kernel, or raises on a wrong dtype,
 device, layout or shape; it never falls back.  `LAUNCHES` counts the kernel
 launches of each wrapper (K2's backward kernel under
 "smpl_verts_backward"), so a run can show that it went through the
-kernels; the spans of utils/tracing.py read it.  The kernels are built with
-nvcc at first use (utils/cuda_build.py).
+kernels; the spans of utils/tracing.py read it.  K2's forward, which a
+CUDA graph of distribution inference holds, counts no launch recorded into
+the graph's capture (it runs at the replays, which the device trace
+sees).  The kernels are built with nvcc at first use (utils/cuda_build.py).
 
 Gradients.  The forward kernels compute no gradient, so on CUDA their
 wrappers raise when grad mode is on and an input requires grad, instead of
@@ -225,7 +227,8 @@ def smpl_verts(a12, betas, pose_feature, v_template_cm, shapedirs_cm, posedirs_c
     b = betas.shape[0]
     _check((b,), *args)
     out = _smpl_verts_launch(args, forward_plan(b, v_template_cm.shape[1], _sm_count(a12.device)))
-    LAUNCHES["smpl_verts"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES["smpl_verts"] += 1
     return out
 
 

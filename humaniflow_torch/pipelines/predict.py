@@ -4,12 +4,17 @@ meshes, per-vertex uncertainty and prediction dumps.
 The PyTorch counterpart of `humaniflow_tpu/pipelines/predict.py`: Canny +
 heatmap proxy build, the N-sample forward with the point estimate as sample
 0, SMPL (kernel K2) for the point estimate, the T-pose and every sample, and
-the per-vertex variance.  With a device mesh (parallel/) each rank runs its
-data block of the batch, the B·N sample SMPL stage splits over both axes of
-a ("data", "sample") mesh, and every rank ends with the whole batch.
+the per-vertex variance.  On CUDA, distribution inference replays one CUDA
+graph per model and shapes (`_graphed_predict`).  With a device mesh
+(parallel/) it runs eagerly: each rank runs its data block of the batch, the
+B·N sample SMPL stage splits over both axes of a ("data", "sample") mesh,
+and every rank ends with the whole batch.
 """
 
 import os
+import weakref
+from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -17,6 +22,7 @@ import torch
 
 from ..configs.defaults import HumaniflowConfig
 from ..data.label_conversions import convert_2d_joints_to_gaussian_heatmaps
+from ..flows import cuda_level
 from ..models.canny import CannyEdgeDetector
 from ..models.humaniflow import HumaniflowModel
 from ..models.smpl import SMPLModel, smpl_forward
@@ -70,6 +76,12 @@ def make_predict_fn(
 ):
     """proxy (B, wh, wh, 18) → full distribution-inference outputs.
 
+    On CUDA with no mesh and on K5's route, with the shape mode for the
+    samples, the call is one CUDA graph of `_predict_body`, captured at a
+    model's first call at its shapes and replayed after (see
+    `_graphed_predict`); the noise is drawn eagerly before it, as apply
+    draws it, so the outputs are the eager body's bits.
+
     :param device: default CUDA (raises if unavailable); model and smpl must
         already live there.
     :param mesh: optional DeviceMesh (parallel/).  A 1-D "data" mesh shards
@@ -85,85 +97,207 @@ def make_predict_fn(
     for name, dev in (("model", model.device), ("smpl", smpl.device)):
         if dev.type != device.type or (device.index is not None and dev.index != device.index):
             raise ValueError(f"{name} lives on {dev}, not on {device}")
-
-    sample_shards = 1 if mesh is None else axis_size(mesh, "sample")
-    if sample_shards > 1:
+    if mesh is not None:
+        sample_shards = axis_size(mesh, "sample")
         assert num_samples % sample_shards == 0, (
             f"num_samples={num_samples} must divide the sample axis ({sample_shards})"
         )
-    data_group = None if mesh is None else axis_group(mesh, DATA_AXIS)
 
     @torch.inference_mode()
     @traced("dist_infer")
     def predict(proxy, generator: Optional[torch.Generator] = None, base_noise: Optional[List] = None):
-        shape_noise = None
-        if mesh is not None:
-            # the whole batch's noise, then this rank's data block of it and of the proxy
-            if base_noise is None:
-                shape_noise, base_noise = model.draw_noise(proxy.shape[0], num_samples, generator,
-                                                           use_shape_mode_for_samples)
-            proxy, base_noise, shape_noise = shard_batch((proxy, list(base_noise), shape_noise), mesh)
-        out = model.apply(
-            proxy,
-            generator=generator,
-            num_samples=num_samples,
-            use_shape_mode_for_samples=use_shape_mode_for_samples,
-            return_input_feats=True,
-            base_noise=base_noise,
-            shape_noise=shape_noise,
-        )
-        b = proxy.shape[0]
-        with span("smpl"):
-            pe = smpl_forward(smpl, out["shape_mode"], out["pose_rotmats_point_est"], out["glob_rotmat"])
-        eye = torch.eye(3, device=proxy.device)
-        with span("smpl"):
-            tpose = smpl_forward(smpl, out["shape_mode"], eye.expand(b, 23, 3, 3), eye.expand(b, 3, 3))
-
-        n = num_samples
-        flat_in = (
-            out["shape_samples"].reshape(b * n, -1),
-            out["pose_rotmats_samples"].reshape(b * n, 23, 3, 3),
-            out["glob_rotmat"][:, None].expand(b, n, 3, 3).reshape(b * n, 3, 3),
-        )
-        if sample_shards > 1:
-            # this rank's block of the data block's b·N rows: flat block d·S + s of B·N
-            flat_in = shard_batch(flat_in, mesh, "sample")
-        with span("smpl"):
-            flat = smpl_forward(smpl, *flat_in)
-        pred = {
-            "cam_wp": out["cam_wp"],
-            "glob_rotmat": out["glob_rotmat"],
-            "shape_mode": out["shape_mode"],
-            "shape_log_std": out["shape_log_std"],
-            "pose_axisangle_point_est": out["pose_axisangle_point_est"],
-            "pose_rotmats_point_est": out["pose_rotmats_point_est"],
-            "pose_rotmats_samples": out["pose_rotmats_samples"],
-            "shape_samples": out["shape_samples"],
-            "input_feats": out["input_feats"],
-            "verts_point_est": pe["vertices"],
-            "joints_point_est": pe["joints"],
-            "tpose_verts": tpose["vertices"],
-        }
-        flat_out = {"vertices": flat["vertices"], "joints": flat["joints"]}
-        if mesh is not None:
-            # the ranks of one "sample" line hold the same rows; the flat
-            # blocks are in rank order (d·S + s) over the whole group
-            pred = all_gather_tree(pred, data_group)
-            flat_out = all_gather_tree(flat_out, data_group if sample_shards == 1 else torch.distributed.group.WORLD)
-            b = pred["cam_wp"].shape[0]
-        nv = flat_out["vertices"].shape[1]
-        verts_samples = flat_out["vertices"].reshape(b, n, nv, 3)
-        with span("variance"):
-            avg_l2, directional_std = compute_vertex_variance_from_samples(verts_samples)
-        pred.update(
-            verts_samples=verts_samples,
-            joints_samples=flat_out["joints"].reshape(b, n, -1, 3),
-            vertex_uncertainty_l2=avg_l2,
-            vertex_uncertainty_directional=directional_std,
-        )
-        return pred
+        if (use_shape_mode_for_samples and (generator is not None or base_noise is not None)
+                and _graph_route(model, proxy.device, mesh)):
+            if base_noise is None:  # drawn as apply draws it
+                base_noise = model._draw_level_noise((proxy.shape[0], num_samples), generator)
+            return _graphed_predict(model, smpl, num_samples, proxy, list(base_noise))
+        return _predict_body(model, smpl, num_samples, use_shape_mode_for_samples, mesh, proxy, generator,
+                             base_noise)
 
     return predict
+
+
+def _predict_body(model: HumaniflowModel, smpl: SMPLModel, num_samples: int, use_shape_mode_for_samples: bool,
+                  mesh, proxy, generator: Optional[torch.Generator] = None, base_noise: Optional[List] = None,
+                  shape_noise: Optional[torch.Tensor] = None) -> Dict:
+    """Distribution inference, eagerly: the encoder and heads, the (B, N+1)
+    flow pass, SMPL (K2) at B, B and B·N rows, the per-vertex variance;
+    arguments as make_predict_fn's and its function's (shape_noise:
+    HumaniflowModel.apply's)."""
+    sample_shards = 1 if mesh is None else axis_size(mesh, "sample")
+    if mesh is not None:
+        # the whole batch's noise, then this rank's data block of it and of the proxy
+        if base_noise is None:
+            shape_noise, base_noise = model.draw_noise(proxy.shape[0], num_samples, generator,
+                                                       use_shape_mode_for_samples)
+        proxy, base_noise, shape_noise = shard_batch((proxy, list(base_noise), shape_noise), mesh)
+    out = model.apply(
+        proxy,
+        generator=generator,
+        num_samples=num_samples,
+        use_shape_mode_for_samples=use_shape_mode_for_samples,
+        return_input_feats=True,
+        base_noise=base_noise,
+        shape_noise=shape_noise,
+    )
+    b = proxy.shape[0]
+    with span("smpl"):
+        pe = smpl_forward(smpl, out["shape_mode"], out["pose_rotmats_point_est"], out["glob_rotmat"])
+    eye = torch.eye(3, device=proxy.device)
+    with span("smpl"):
+        tpose = smpl_forward(smpl, out["shape_mode"], eye.expand(b, 23, 3, 3), eye.expand(b, 3, 3))
+
+    n = num_samples
+    flat_in = (
+        out["shape_samples"].reshape(b * n, -1),
+        out["pose_rotmats_samples"].reshape(b * n, 23, 3, 3),
+        out["glob_rotmat"][:, None].expand(b, n, 3, 3).reshape(b * n, 3, 3),
+    )
+    if sample_shards > 1:
+        # this rank's block of the data block's b·N rows: flat block d·S + s of B·N
+        flat_in = shard_batch(flat_in, mesh, "sample")
+    with span("smpl"):
+        flat = smpl_forward(smpl, *flat_in)
+    pred = {
+        "cam_wp": out["cam_wp"],
+        "glob_rotmat": out["glob_rotmat"],
+        "shape_mode": out["shape_mode"],
+        "shape_log_std": out["shape_log_std"],
+        "pose_axisangle_point_est": out["pose_axisangle_point_est"],
+        "pose_rotmats_point_est": out["pose_rotmats_point_est"],
+        "pose_rotmats_samples": out["pose_rotmats_samples"],
+        "shape_samples": out["shape_samples"],
+        "input_feats": out["input_feats"],
+        "verts_point_est": pe["vertices"],
+        "joints_point_est": pe["joints"],
+        "tpose_verts": tpose["vertices"],
+    }
+    flat_out = {"vertices": flat["vertices"], "joints": flat["joints"]}
+    if mesh is not None:
+        # the ranks of one "sample" line hold the same rows; the flat
+        # blocks are in rank order (d·S + s) over the whole group
+        data_group = axis_group(mesh, DATA_AXIS)
+        pred = all_gather_tree(pred, data_group)
+        flat_out = all_gather_tree(flat_out, data_group if sample_shards == 1 else torch.distributed.group.WORLD)
+        b = pred["cam_wp"].shape[0]
+    nv = flat_out["vertices"].shape[1]
+    verts_samples = flat_out["vertices"].reshape(b, n, nv, 3)
+    with span("variance"):
+        avg_l2, directional_std = compute_vertex_variance_from_samples(verts_samples)
+    pred.update(
+        verts_samples=verts_samples,
+        joints_samples=flat_out["joints"].reshape(b, n, -1, 3),
+        vertex_uncertainty_l2=avg_l2,
+        vertex_uncertainty_directional=directional_std,
+    )
+    return pred
+
+
+# ------------------------------------------------------- the CUDA graph route
+#
+# Eager, a call of distribution inference is ~1,100 small launches for ~13 ms
+# of device work (an H100 at B = 32, N = 100), so the host's launches set its
+# pace.  On the graph route the body runs as one CUDA graph per model and
+# shapes, captured at the first call and replayed after: the same kernels (K5
+# and K2 among them) in the same order, with no host between them.
+
+GRAPHS_PER_MODEL = 4  # the shapes whose graphs a model keeps, the least recently used dropped first
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()  # model → OrderedDict(shape key → _Graphed)
+
+
+def _graph_route(model: HumaniflowModel, device: torch.device, mesh) -> bool:
+    """Whether a call replays a CUDA graph: on CUDA, with no mesh (the body's
+    collectives stay eager) and on K5's route (grad mode off and
+    HFT_FUSED_LEVEL not 0: the eager flow's Permute indexes by a host list,
+    which a capture refuses)."""
+    return device.type == "cuda" and mesh is None and model._fused_level_enabled()
+
+
+def _layout(t: torch.Tensor):
+    return tuple(t.shape), t.stride(), t.dtype, t.device
+
+
+def _shape_key(smpl: SMPLModel, num_samples: int, proxy, base_noise) -> tuple:
+    """What a graph's shapes depend on: the SMPL object, N and the inputs'
+    layouts (B among them)."""
+    return id(smpl), num_samples, _layout(proxy), tuple(_layout(t) for t in base_noise)
+
+
+def _state_key(model: HumaniflowModel, smpl: SMPLModel) -> tuple:
+    """Where each parameter, buffer and SMPL tensor lies, and the key of K5's
+    weight pack: a graph reads the tensors where they lay at its capture, so
+    a write in place needs no new capture, but K5 reads a packed copy of the
+    hypernet's, remade on such a write (flows/cuda_level.py)."""
+    tensors = [*model.parameters(), *model.buffers(), *(v for v in vars(smpl).values() if isinstance(v, torch.Tensor))]
+    return tuple(t.data_ptr() for t in tensors), cuda_level._cache_key(model.flow)
+
+
+def _capture(body, inputs: List[torch.Tensor]):
+    """The documented recipe: body(*inputs) eagerly on a side stream (the
+    warm-up: kernel builds, K5's pack, cuBLAS and cuDNN state), then body on
+    copies of the inputs captured as a CUDA graph on that stream.  Returns
+    (the copies, the graph, its outputs, the warm-up's outputs)."""
+    device = inputs[0].device
+    static = [t.clone() for t in inputs]
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        first = body(*inputs)
+    torch.cuda.current_stream(device).wait_stream(stream)
+    for t in first.values():  # made on the side stream, read on the caller's
+        t.record_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = body(*static)
+    return static, graph, out, first
+
+
+@dataclass
+class _Graphed:
+    """One captured call: the state it was captured at, what its kernels read
+    that nothing else keeps alive (the SMPL object, K5's packs), its static
+    inputs, the graph and its outputs in the graph's pool."""
+
+    state: tuple
+    keep: tuple
+    inputs: List[torch.Tensor]
+    graph: "torch.cuda.CUDAGraph"
+    out: Dict[str, torch.Tensor]
+
+    def replay(self, inputs: List[torch.Tensor]) -> Dict:
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        # callers keep predictions, and the next replay overwrites the pool
+        return {k: v.clone() for k, v in self.out.items()}
+
+
+def _graphed_predict(model: HumaniflowModel, smpl: SMPLModel, num_samples: int, proxy, base_noise) -> Dict:
+    """_predict_body through the model's graph for these shapes: captured at
+    the first call (which returns the eager warm-up's outputs) and again
+    whenever a tensor it reads moved or K5's pack was remade, replayed
+    otherwise; counted on the open span as graph_captures or graph_replays."""
+    graphs = _GRAPHS.setdefault(model, OrderedDict())
+    key = _shape_key(smpl, num_samples, proxy, base_noise)
+    state = _state_key(model, smpl)
+    inputs = [proxy, *base_noise]
+    entry = graphs.pop(key, None)
+    if entry is not None and entry.state == state:
+        graphs[key] = entry  # the most recently used
+        count("graph_replays", 1)
+        return entry.replay(inputs)
+    del entry  # its pool goes before the new capture takes one
+    while len(graphs) >= GRAPHS_PER_MODEL:
+        graphs.popitem(last=False)
+
+    def body(proxy, *noise):
+        return _predict_body(model, smpl, num_samples, True, None, proxy, None, list(noise))
+
+    static, graph, out, first = _capture(body, inputs)
+    keep = (smpl, list(cuda_level._PLANS.get(model.flow, {}).values()))
+    graphs[key] = _Graphed(state, keep, static, graph, out)
+    count("graph_captures", 1)
+    return first
 
 
 def save_pred_output(pred: Dict, fnames, save_dir: str, extras: Optional[Dict] = None):

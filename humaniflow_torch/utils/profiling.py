@@ -191,6 +191,24 @@ def kernel_device_ms(fn, name: str, iters: int = 20, sessions: int = 3) -> float
     return sum(us) / 1e3 / iters
 
 
+def kernel_counts(fn, names, sessions: int = 3) -> Dict[str, int]:
+    """The CUDA kernels of one call of fn (torch.profiler) whose name
+    contains each of `names`, by name: what ran on the device, also where no
+    wrapper launched it, as in a CUDA graph's replay.  A session that sees
+    no device activity at all is run again, as in kernel_device_ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    return {name: sum(name in k for k in kernels) for name in names}
+
+
 def device_profile(fn, iters: int = 5, top: int = 8) -> dict:
     """Profile `iters` calls of fn (after a warm-up): device busy ms and
     launches per call, and the top kernels by device time."""

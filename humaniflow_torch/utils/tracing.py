@@ -9,10 +9,14 @@ and, under torch.profiler, on the device trace's clock.
 
 `span(name)` marks a layer of the program (the names are dotted, as
 "hrnet.upload"); `count(name, n)` adds n to a counter of the innermost open
-span of the calling thread ("h2d_bytes").  Each span also takes the
-launches of the hand-written kernels inside it, from the `LAUNCHES` dicts
-of their wrappers (models/cuda_lbs.py, render/cuda_raster.py, ...), which
-register themselves here through `launch_counter`.
+span of the calling thread ("h2d_bytes"; "graph_captures" and
+"graph_replays" on `dist_infer`, pipelines/predict.py's CUDA graph).  Each
+span also takes the launches of the hand-written kernels inside it, from the
+`LAUNCHES` dicts of their wrappers (models/cuda_lbs.py,
+render/cuda_raster.py, ...), which register themselves here through
+`launch_counter`.  K5's and K2's wrappers count no launch recorded into a
+CUDA graph's capture, and a replay launches from no wrapper: the device
+trace sees a replay's kernels.
 
 Tracing is off by default.  Off, `span` returns one shared object that
 does nothing, after a check of this module's flag and of torch's flag of a

@@ -2,8 +2,9 @@
 of csrc/smpl_lbs.cu, K3 (coverage) of csrc/coverage.cu, K4 (raster) of
 csrc/raster.cu, K5 (flow_level) of csrc/flow_level.cu, K6 (tiled_raster) of
 csrc/tiled_raster.cu and K7 (lbs_skin, with its gradient) of
-csrc/lbs_skin.cu against their plain PyTorch twins, on an NVIDIA GPU; and
-the kernels without a backward refusing inputs that require grad.
+csrc/lbs_skin.cu against their plain PyTorch twins, on an NVIDIA GPU; the
+kernels without a backward refusing inputs that require grad; and
+distribution inference replayed as one CUDA graph against its eager body.
 
 Every test here is marked `cuda` and skips without a card.  The file imports
 nothing of JAX, so that it also runs where JAX is not installed:
@@ -405,6 +406,156 @@ def test_default_route_matches_eager_at_the_prediction_cells_shape(monkeypatch, 
     assert cuda_level.LAUNCHES["flow_level"] == before + len(model.levels) == before + 8
     for k in ("pose_rotmats_point_est", "pose_rotmats_samples"):
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=CELL_ROT_ATOL, msg=k)
+
+
+# Distribution inference as one CUDA graph (pipelines/predict.py): each call
+# of the graphed function against `_predict_body` run eagerly on the same
+# inputs, bit for bit, at the r18 cell's (B, N) and the uncropped cells'.
+GRAPH_SHAPES = [(32, 100), (32, 50)]
+
+
+def _graph_case(b, n, seed=0):
+    """A default-width model on the card, SMPL at V = 6890, the graphed
+    predict function at N and a pool of three (proxy, noise) batches of B."""
+    from humaniflow_torch.configs import get_humaniflow_cfg_defaults
+    from humaniflow_torch.models import synthetic_smpl
+    from humaniflow_torch.pipelines import predict as tpredict
+
+    model, smpl = _flow_model(seed), synthetic_smpl(num_verts=6890)
+    g = torch.Generator("cuda").manual_seed(20 + seed)
+    pool = [(torch.rand((b, 256, 256, 18), generator=g, device="cuda"), model._draw_level_noise((b, n), g))
+            for _ in range(3)]
+    return model, smpl, tpredict.make_predict_fn(model, smpl, get_humaniflow_cfg_defaults(), num_samples=n), pool
+
+
+def _eager_prediction(model, smpl, n, proxy, noise=None, generator=None):
+    from humaniflow_torch.pipelines import predict as tpredict
+
+    with torch.inference_mode():
+        return tpredict._predict_body(model, smpl, n, True, None, proxy, generator, noise)
+
+
+def _assert_same_bits(got, want, what):
+    assert set(got) == set(want), what
+    for k in want:
+        assert torch.equal(got[k], want[k]), f"{what}: {k}"
+
+
+def _launches():
+    from humaniflow_torch.flows import cuda_level
+
+    return cuda_level.LAUNCHES["flow_level"], cuda_lbs.LAUNCHES["smpl_verts"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_from", ["explicit noise", "a generator"])
+@pytest.mark.parametrize("b,n", GRAPH_SHAPES)
+def test_graphed_prediction_is_the_eager_body_bit_for_bit(b, n, noise_from):
+    """The capture (which returns its eager warm-up), the first replay and a
+    later replay, each on another pool batch, equal the eager body; call 1's
+    outputs are unchanged after calls 2 and 3.  K5's and K2's wrappers count
+    the warm-up's 8 and 3 launches and none of the capture's or a replay's
+    (the device trace sees a replay's kernels: the test below)."""
+    _require_cuda()
+    model, smpl, predict, pool = _graph_case(b, n)
+    got, copies = [], []
+    for i, (proxy, noise) in enumerate(pool):
+        before = _launches()
+        if noise_from == "explicit noise":
+            out = predict(proxy, None, noise)
+        else:
+            out = predict(proxy, torch.Generator("cuda").manual_seed(i))
+        torch.cuda.synchronize()
+        assert tuple(a - c for a, c in zip(_launches(), before)) == ((8, 3) if i == 0 else (0, 0)), f"call {i + 1}"
+        got.append(out)
+        copies.append({k: v.clone() for k, v in out.items()})
+    for i, ((proxy, noise), out, copy) in enumerate(zip(pool, got, copies)):
+        gen = torch.Generator("cuda").manual_seed(i) if noise_from == "a generator" else None
+        want = _eager_prediction(model, smpl, n, proxy, None if gen is not None else noise, gen)
+        _assert_same_bits(out, want, f"call {i + 1}")
+        _assert_same_bits(out, copy, f"call {i + 1} after the later calls")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", GRAPH_SHAPES)
+def test_a_replay_runs_k5_and_k2_inside_the_graph(b, n):
+    """One replay under torch.profiler: the device ran K5's 8 levels and K2's
+    3 calls (the point estimate, the T-pose, the B·N samples) by their
+    kernels' names, though no wrapper launched them."""
+    _require_cuda()
+    from humaniflow_torch.utils import tracing
+    from humaniflow_torch.utils.profiling import kernel_counts
+
+    model, smpl, predict, pool = _graph_case(b, n)
+    (proxy, noise), (proxy2, noise2) = pool[:2]
+    predict(proxy, None, noise)  # the capture
+    torch.cuda.synchronize()
+    before = _launches()
+    tracing.reset()
+    with tracing.tracing():
+        seen = kernel_counts(lambda: predict(proxy2, None, noise2), ("flow_level_kernel", "smpl_verts_kernel"))
+    assert set(tracing.summary()["dist_infer"]["counters"]) == {"graph_replays"}  # more if the profiler retried
+    assert seen == {"flow_level_kernel": 8, "smpl_verts_kernel": 3}
+    assert _launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", GRAPH_SHAPES)
+def test_graphed_prediction_replays_an_in_place_write_outside_the_hypernet(b, n):
+    """The encoder's weights written in place after a capture and a replay:
+    the next call is a replay (the graph reads them where they lie, and K5's
+    pack is unchanged) and equals the eager body under the new weights."""
+    _require_cuda()
+    from humaniflow_torch.utils import tracing
+
+    model, smpl, predict, pool = _graph_case(b, n)
+    for proxy, noise in pool[:2]:
+        old = predict(proxy, None, noise)
+    with torch.no_grad():
+        for p in model.encoder.parameters():
+            p.mul_(1.5)
+    tracing.reset()
+    with tracing.tracing():
+        got = predict(proxy, None, noise)
+    assert tracing.summary()["dist_infer"]["counters"] == {"graph_replays": 1}
+    _assert_same_bits(got, _eager_prediction(model, smpl, n, proxy, noise), "after the encoder's write")
+    assert not torch.equal(got["input_feats"], old["input_feats"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", GRAPH_SHAPES)
+def test_graphed_prediction_follows_an_in_place_load_state_dict(b, n):
+    """New weights loaded in place after a capture and a replay: the next
+    call is the eager body under the new weights, so neither K5's old pack
+    nor any stale address leaks into it."""
+    _require_cuda()
+    model, smpl, predict, pool = _graph_case(b, n)
+    for proxy, noise in pool[:2]:
+        old = predict(proxy, None, noise)
+    model.load_state_dict(_flow_model(1).state_dict())
+    proxy, noise = pool[1]
+    got = predict(proxy, None, noise)
+    _assert_same_bits(got, _eager_prediction(model, smpl, n, proxy, noise), "after load_state_dict")
+    assert float((got["pose_rotmats_samples"] - old["pose_rotmats_samples"]).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", GRAPH_SHAPES)
+def test_graphed_prediction_follows_the_fused_level_switch(monkeypatch, b, n):
+    """HFT_FUSED_LEVEL=0 set after a capture and a replay: the next call runs
+    the eager body with the eager flow (no K5 launch, off the graph route)
+    and equals it."""
+    _require_cuda()
+    model, smpl, predict, pool = _graph_case(b, n)
+    for proxy, noise in pool[:2]:
+        predict(proxy, None, noise)
+    monkeypatch.setenv("HFT_FUSED_LEVEL", "0")
+    proxy, noise = pool[2]
+    before = _launches()
+    got = predict(proxy, None, noise)
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(_launches(), before)) == (0, 3)
+    _assert_same_bits(got, _eager_prediction(model, smpl, n, proxy, noise), "HFT_FUSED_LEVEL=0")
 
 
 
