@@ -13,15 +13,17 @@ Phases, each of which raises on failure (exit code != 0):
    time both (K1 also at a rank's (32, 50) and (16, 100));
 3. drive the main path through predict_humaniflow at the full width of the
    default model (ResNet-18, 256² proxy, 8-level flow, synthetic SMPL with
-   6890 vertices; seeded random weights), B=32 images, N=100 samples, and
-   check its outputs against the CPU path on a small input;
+   6890 vertices; seeded random weights), B=32 images, N=100 samples: its
+   first call captures distribution inference's CUDA graph (K5 once a level
+   in the warm-up), a second call, a replay, is held bit for bit to it; and
+   check its outputs against the CPU path (the plain twins) on a small input;
 4. run the distribution-inference program (model → K1 moments → variance,
    plus the K2 point estimate) at B=32, N=100 and check its variance
    against predict's vertex samples drawn with the same noise;
 5. hold kernel K3 (coverage) against its plain twin, bit for bit, on posed
    synthetic bodies and on hand-made ragged faces, at 256² and 200², with
    and without back-face culling, and on the cases that reach each branch
-   of the kernel (utils/profiling.py::coverage_cases: a face over the
+   of the kernel (tests/_torch_cases.py::coverage_cases: a face over the
    whole image, all faces culled, band borders at 1024², sizes 33 and 200,
    M = 1 and 257, many large boxes, a NaN vertex, out-of-range indices),
    and time it at 3,232 posed bodies;
@@ -37,19 +39,13 @@ Phases, each of which raises on failure (exit code != 0):
    depth levels, with the contexts of the model's own autoregressive pass on
    phase 3's proxies (B·(N+1) = 3,232 rows) and on ragged row counts, for
    z ~ 0.6·N(0, 1), z = 0 and z = ±10, and time it per level;
-9. drive predict_humaniflow, the distribution-inference program and the
-   3DPW protocol (N=10) again on the default route (HFT_FUSED_LEVEL unset:
-   under inference mode, K5 once per level) and hold them against phases
-   3-4's and 7's outputs for the same noise; predict_humaniflow's first call
-   there captures its CUDA graph, and a second call, a replay, is held bit
-   for bit to it;
+9. (no phase 9: phase 3 checks distribution inference's CUDA graph);
 10. drive uncropped-image predict at full width: 32 synthetic images of two
    sizes → predict_hrnet_batch (HRNet-W48 at 384×288, seeded random weights,
-   keypoint-box fallback) → the 256² crop → predict_humaniflow on the
-   default route (K5; a replay of phase 9's graph), N=100, with float32 and
-   with bf16 HRNet convolutions; check
-   GPU HRNet heatmaps and keypoints against the CPU on 2 images, and time it
-   (img/s, and the split into HRNet, crops and predict);
+   keypoint-box fallback) → the 256² crop → predict_humaniflow (a replay of
+   phase 3's graph), N=100, with float32 and with bf16 HRNet convolutions;
+   check GPU HRNet heatmaps and keypoints against the CPU on 2 images, and
+   time it (img/s, and the split into HRNet, crops and predict);
 11. training: hold kernel K4 (raster) against its plain twin, bit for bit,
    on posed bodies at 256² with the training flags and with fragments,
    linear attributes and depth gradients, culled and not, and on the cases
@@ -73,7 +69,7 @@ Phases, each of which raises on failure (exit code != 0):
 12. hold kernel K6 (tiled_raster) against its plain twin, bit for bit, on 32
    posed bodies at 256² with the renderer's tile-sorted faces, on
    hand-made ragged faces at 128² and 384² and on 2,400 near-degenerate
-   faces (utils/profiling.py::sliver_case: slivers whose rounding claims
+   faces (tests/_torch_cases.py::sliver_case: slivers whose rounding claims
    pixels beyond their tips, needles, areas just above 1e-9), and time it
    at B=32;
 13. hold kernel K7 (lbs_skin) against its plain twin at B=37 and B·N=3200
@@ -114,8 +110,8 @@ Phases, each of which raises on failure (exit code != 0):
    to the same runs in one process, and the mesh path's overhead (predict
    img/s, train step ms) against one process, in turns in the rank; (b) 2
    gloo ranks on the one card: the 1×2 sample split of distribution
-   inference on the default route (K5 once a level and K1 at (32, 50) on
-   each rank) held to phase 9, a train step at
+   inference (K5 once a level and K1 at (32, 50) on each rank) held to
+   phase 4, a train step at
    B=72 (36 a rank) and an SSP-3D batch (16 a rank) held to one process;
    K1, K2, K3 and K4 launched on every rank; (c) the predict, evaluate and
    train CLIs with --num_devices 1 (--sample_devices 1, -D 1) on phase
@@ -133,13 +129,16 @@ Phases, each of which raises on failure (exit code != 0):
    cli/run_evaluate.py -D 3dpw (N=10) on the prepared directory with phase
    15's checkpoint (finite per-frame metrics); frames/s of both CLIs.
 
-Phases 9, 10, 15a and 16b's sample split take the default route; the others
-run the eager flow (HFT_FUSED_LEVEL=0), the reference.  Each path of phases 3, 4,
-6, 7, 9, 10, 11, 14, 15, 16 (in each rank) and 17 is driven with the kernel
-launch counters set to 0 just before it and read just after; launches made to compare a
-kernel with its twin, or to time it, are not counted; a replay of
-distribution inference's CUDA graph (phase 9's second call, phase 10)
-launches from no wrapper and is counted by `graph_replays`.  Last,
+Every phase runs the program's one flow route: the fused level kernel K5
+on every pass with grad mode off, the eager flow under grad (training) and
+for the flows K5 does not take (phase 15a).  Phase 8 holds K5 against its
+plain twin, the eager flow's level, on every level.  Each path of phases
+3, 4, 6, 7, 10, 11, 14, 15, 16 (in each rank) and 17 is driven with the
+kernel launch counters set to 0 just before it and read just after;
+launches made to compare a kernel with its twin, or to time it, are not
+counted; a replay of distribution inference's CUDA graph (phase 3's second
+call, phase 10) launches from no wrapper and is counted by
+`graph_replays`.  Last,
 torch.profiler counts K5's and K2's kernels inside one such replay and the
 kernel launches of one call of K2's backward, and takes the kernels' own
 device ms (K1 and K4 beside their bounds).  Prints one
@@ -155,6 +154,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from kernel_times import cuda_ms, kernel_device_ms, tests_module, wall_ms
 
 B, N, V, IMG = 32, 100, 6890, 256
 FP32_PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -209,6 +210,12 @@ PW3D_CORNER_ATOL = 5e-2  # card vs CPU box corners before rounding, px
 PW3D_CLEAR_SHARE = 0.9  # frames held crop for crop: at least this share
 
 
+def _cases():
+    """tests/_torch_cases.py: the kernel cases and fixtures shared with the
+    tests."""
+    return tests_module("_torch_cases")
+
+
 def _bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -249,7 +256,6 @@ def check_kernels(smpl):
     import torch
 
     from humaniflow_torch.models import cuda_lbs
-    from humaniflow_torch.utils.profiling import cuda_ms
 
     records = {}
     for rows, v in (((37,), 1000), ((B * N,), V)):
@@ -459,7 +465,6 @@ def check_coverage(smpl):
     import torch
 
     from humaniflow_torch.render import TexturedIUVRenderer, cuda_coverage
-    from humaniflow_torch.utils.profiling import coverage_cases, cuda_ms
 
     for img in (IMG, 200):
         renderer = TexturedIUVRenderer(img_wh=img, render_rgb=False)
@@ -477,7 +482,7 @@ def check_coverage(smpl):
                     raise AssertionError(f"K3 disagrees with its plain twin ({name}, {img}², cull {cull})")
     # the cases that reach every branch of the kernel: bands, the large-box
     # queue, ragged mask words, culled meshes, out-of-range indices
-    for name, (sv, faces, img, cull) in coverage_cases("cuda").items():
+    for name, (sv, faces, img, cull) in _cases().coverage_cases("cuda").items():
         mask, overflow = cuda_coverage.coverage(sv, faces, img, cull_sign=cull)
         torch.cuda.synchronize()
         want, want_overflow = cuda_coverage.coverage_plain(sv, faces, img, cull_sign=cull)
@@ -532,9 +537,8 @@ def run_protocol(model, smpls, cfg, metrics, n_samples, renderer=None):
     import torch
 
     from humaniflow_torch.pipelines import evaluate_humaniflow
-    from humaniflow_torch.utils.profiling import SyntheticEvalDataset
 
-    ds = SyntheticEvalDataset(PROTOCOL_BATCHES * B, IMG)
+    ds = _cases().SyntheticEvalDataset(PROTOCOL_BATCHES * B, IMG)
     times = []
     _zero_counts()
     final = evaluate_humaniflow(
@@ -557,9 +561,9 @@ def ssp3d_split(model, smpls, cfg, renderer):
     from humaniflow_torch.metrics import EvalMetricsTracker
     from humaniflow_torch.pipelines import EVAL_METRICS_SSP3D
     from humaniflow_torch.pipelines.evaluate import _render_sample_silhouettes, make_eval_step
-    from humaniflow_torch.utils.profiling import SyntheticEvalDataset, cuda_ms, staged_batch
+    fixtures = _cases()
 
-    batch = staged_batch(SyntheticEvalDataset(B, IMG), B, "cuda")
+    batch = fixtures.staged_batch(fixtures.SyntheticEvalDataset(B, IMG), B, "cuda")
     eval_step = make_eval_step(model, *smpls, cfg, N, True, True)
     gen = torch.Generator("cuda")
     pred, target, proxy, extra = eval_step(batch, generator=gen.manual_seed(13))
@@ -630,7 +634,7 @@ def check_eval_against_cpu(model, smpls, cfg):
     from humaniflow_torch.pipelines import EVAL_METRICS_SSP3D, evaluate_humaniflow
     from humaniflow_torch.pipelines.evaluate import _render_sample_silhouettes, make_eval_step
     from humaniflow_torch.render import TexturedIUVRenderer
-    from humaniflow_torch.utils.profiling import SyntheticEvalDataset, staged_batch
+    fixtures = _cases()
 
     b, n, img = 2, 3, 64
     cfg64 = dataclasses.replace(cfg, DATA=dataclasses.replace(cfg.DATA, PROXY_REP_SIZE=img))
@@ -640,13 +644,13 @@ def check_eval_against_cpu(model, smpls, cfg):
     g = torch.Generator().manual_seed(12)
     noise = [(torch.randn((b, n, 10), generator=g), [torch.randn((b, n, len(p), 3), generator=g) for p in model.levels])
              for _ in range(2)]
-    ds = SyntheticEvalDataset(2 * b, img=img)
+    ds = fixtures.SyntheticEvalDataset(2 * b, img=img)
     finals, sils = {}, {}
     for dev, mdl, sm in (("cuda", model, smpls), ("cpu", cpu_model, cpu_smpls)):
         renderer = TexturedIUVRenderer(img_wh=img, render_rgb=False, silhouette_exact=True, device=dev)
         finals[dev] = evaluate_humaniflow(mdl, *sm, cfg64, ds, EVAL_METRICS_SSP3D, batch_size=b, num_pred_samples=n,
                                           renderer=renderer, noise_fn=lambda i, bb, nn: noise[i], device=dev)
-        batch = staged_batch(ds, b, dev)
+        batch = fixtures.staged_batch(ds, b, dev)
         step = make_eval_step(mdl, *sm, cfg64, n, True, True)
         pred, _, _, extra = step(batch, noise=tuple([noise[0][0].to(dev), [z.to(dev) for z in noise[0][1]]]))
         with torch.inference_mode():
@@ -666,20 +670,27 @@ def check_eval_against_cpu(model, smpls, cfg):
 
 
 def _level_inputs(model, proxy, seed):
-    """(parts, z, ctx) of each depth level of one eager (B, N+1) pass of the
-    model on `proxy`, captured by a forward hook on the flow."""
+    """(parts, z, ctx) of each depth level of one (B, N+1) pass of the model
+    on `proxy`, taken from its calls of K5's wrapper."""
     import torch
 
-    captured = []
-    handle = model.flow.register_forward_hook(lambda m, args, out: captured.append(args))
+    from humaniflow_torch.flows import cuda_level
+
+    captured, launch = [], cuda_level.flow_forward_level
+
+    def capture(flow, z, ctx, parts):
+        captured.append((z, ctx, parts))
+        return launch(flow, z, ctx, parts)
+
+    cuda_level.flow_forward_level = capture
     try:
         with torch.inference_mode():
             model.apply(proxy, generator=torch.Generator("cuda").manual_seed(seed), num_samples=N,
                         use_shape_mode_for_samples=True)
     finally:
-        handle.remove()
+        cuda_level.flow_forward_level = launch
     if len(captured) != len(model.levels):
-        raise AssertionError(f"captured {len(captured)} flow calls, expected {len(model.levels)}")
+        raise AssertionError(f"captured {len(captured)} K5 calls, expected {len(model.levels)}")
     return [(parts, z.reshape(-1, *z.shape[-2:]), ctx.reshape(-1, *ctx.shape[-2:]).contiguous())
             for z, ctx, parts in captured]
 
@@ -723,7 +734,6 @@ def check_flow_level(model, proxy):
     import torch
 
     from humaniflow_torch.flows import cuda_level
-    from humaniflow_torch.utils.profiling import cuda_ms
 
     flow = model.flow
     levels = _level_inputs(model, proxy, seed=21)
@@ -778,7 +788,6 @@ def time_flow_level(flow, record, timing):
     import torch
 
     from humaniflow_torch.flows import cuda_level
-    from humaniflow_torch.utils.profiling import kernel_device_ms
 
     with torch.inference_mode():  # K5 has no backward and refuses grad mode
         per_level = [kernel_device_ms(lambda: cuda_level.flow_forward_level(flow, z, c, parts), "flow_level_kernel")
@@ -787,16 +796,6 @@ def time_flow_level(flow, record, timing):
     print(f"K5 device time per level (torch.profiler, 20 launches each): "
           f"{', '.join(f'{m:.4f}' for m in per_level)} ms; one AR pass {sum(per_level):.4f} ms "
           f"against a bound of {record['bound_ms']:.5f} ms")
-
-
-def _set_fused(on: bool):
-    """The route of the phases that follow: True the program's default (K5
-    when grad mode is off and the flow is one K5 takes), False the eager
-    flow (HFT_FUSED_LEVEL=0).  A rank spawned after it inherits it."""
-    if on:
-        os.environ.pop("HFT_FUSED_LEVEL", None)
-    else:
-        os.environ["HFT_FUSED_LEVEL"] = "0"
 
 
 def _uncropped_images(n, seed):
@@ -925,9 +924,8 @@ def check_hrnet_against_cpu(crops):
 def _training_renderer():
     """The renderer of the training configuration
     (utils/profiling.py::training_renderer), checked to route to K4."""
-    from humaniflow_torch.utils.profiling import training_renderer
 
-    renderer = training_renderer()
+    renderer = _cases().training_renderer()
     if renderer.rasterizer != "binned":
         raise AssertionError("the training renderer did not route to the attribute rasterizer")
     return renderer
@@ -962,11 +960,11 @@ def check_raster(smpl):
     import torch
 
     from humaniflow_torch.render import cuda_raster
-    from humaniflow_torch.utils.profiling import coverage_cases, cuda_ms, sliver_case, training_screen
+    fixtures = _cases()
 
     faces = _training_renderer().dp["faces"]
     f = faces.shape[0]
-    sv = training_screen(smpl, 6, seed=41)[1]
+    sv = fixtures.training_screen(smpl, 6, seed=41)[1]
     g = torch.Generator("cuda").manual_seed(44)
     rand = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
     cases = {
@@ -979,8 +977,8 @@ def check_raster(smpl):
     # the cases of tests/test_torch_kernels.py: several tiles in both
     # directions, near-degenerate faces, big boxes past a block's queue, all
     # faces culled, non-finite coordinates, indices out of range
-    cov = coverage_cases("cuda")
-    sv384 = training_screen(smpl, 3, seed=45, img=384)[1]
+    cov = fixtures.coverage_cases("cuda")
+    sv384 = fixtures.training_screen(smpl, 3, seed=45, img=384)[1]
     bad_sv = sv[:2].clone()
     bad_sv[0, 100:400] = float("nan")
     bad_sv[1, 500:520, 2] = float("inf")
@@ -990,7 +988,7 @@ def check_raster(smpl):
         "3 posed bodies at 384² (2 column tiles)": (sv384, faces, 384, 1, 0),
         "faces across band borders at 1024², NaN vertex, 2 indices out of range":
             cov["band borders at 1024², NaN vertex, 2 indices out of range"][:3] + (0, 2),
-        "2,400 near-degenerate faces at 256²": sliver_case(IMG) + (IMG, 0, 0),
+        "2,400 near-degenerate faces at 256²": fixtures.sliver_case(IMG) + (IMG, 0, 0),
         "2,000 large boxes": cov["2,000 large boxes"][:3] + (0, 0),
         "all culled, and its mirror all kept": cov["all culled, and its mirror all kept"][:3] + (1, 0),
         "NaN and infinite coordinates": (bad_sv.contiguous(), faces, IMG, 1, 0),
@@ -1004,7 +1002,7 @@ def check_raster(smpl):
             raise AssertionError(f"K4 overflow {got[3].tolist()} on {name}; expected {want_overflow} per mesh")
 
     # time at the training shape: B meshes, the face-texel render's 4 constants, culled
-    sv = training_screen(smpl, TRAIN_B, seed=42)[1]
+    sv = fixtures.training_screen(smpl, TRAIN_B, seed=42)[1]
     attrs = rand(TRAIN_B, f, 4)
     run = lambda m: cuda_raster.raster(sv[:m], faces, IMG, attrs=attrs[:m], emit_frags=False, cull_sign=1)  # noqa: E731
     depth, _, _, overflow = run(TRAIN_B)
@@ -1066,7 +1064,6 @@ def check_smpl_verts_plans(smpl, record):
     import torch
 
     from humaniflow_torch.models import cuda_lbs
-    from humaniflow_torch.utils.profiling import cuda_ms
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
@@ -1102,7 +1099,6 @@ def check_smpl_backward(smpl):
     import torch
 
     from humaniflow_torch.models import cuda_lbs
-    from humaniflow_torch.utils.profiling import cuda_ms
 
     out = {}
     for rows in (B, TRAIN_B, TRAIN_B * TRAIN_NJ):
@@ -1144,6 +1140,18 @@ def check_smpl_backward(smpl):
     )
 
 
+def _device_profile(fn, calls):
+    """Device busy ms and kernel launches a call of fn, and its top kernels
+    (name, ms a call), over `calls` calls after a warm-up: the benchmark's
+    device trace (benchmark/harness/trace.py)."""
+    from benchmark.harness.trace import profile_calls
+
+    fn()
+    trace = profile_calls(lambda k: fn(), calls, "cuda")
+    return {"device_busy_ms": 1e3 * trace.busy_s / calls, "launches": len(trace.kernels) / calls,
+            "top_kernels_ms": [(name[:80], 1e3 * sec / calls) for name, sec in trace.top_ops(8)]}
+
+
 def profile_smpl_backward(smpl, record):
     """Kernel launches and device busy ms of one call of K2's backward (the
     kernel and the products) at the optimise loop's 32 rows and training's
@@ -1151,13 +1159,12 @@ def profile_smpl_backward(smpl, record):
     import torch
 
     from humaniflow_torch.models import cuda_lbs
-    from humaniflow_torch.utils.profiling import device_profile
 
     for rows in (B, TRAIN_B * TRAIN_NJ):
         args = _kernel_args(smpl, (rows,), V, seed=7)
         grad = torch.randn((rows, 3, V), generator=torch.Generator("cuda").manual_seed(8), device="cuda")
         needs = [True] * 3 + [False] * 4
-        prof = device_profile(lambda: cuda_lbs.smpl_verts_backward(grad, needs, *args), iters=5)
+        prof = _device_profile(lambda: cuda_lbs.smpl_verts_backward(grad, needs, *args), 5)
         record[f"launches_per_call_b{rows}"] = prof["launches"]
         record[f"device_busy_ms_b{rows}"] = prof["device_busy_ms"]
         print(f"K2's backward, rows={rows}: {prof['launches']:.0f} kernel launches per call, device busy "
@@ -1174,7 +1181,6 @@ def profile_kernel_device_times(smpl, records):
 
     from humaniflow_torch.models import cuda_lbs
     from humaniflow_torch.render import cuda_raster, cuda_tiled
-    from humaniflow_torch.utils.profiling import kernel_device_ms, training_screen
 
     for rows in _forward_rows():
         args = _kernel_args(smpl, (rows,), V, seed=rows)
@@ -1188,7 +1194,7 @@ def profile_kernel_device_times(smpl, records):
     args = _kernel_args(smpl, (B, N), V, seed=2)
     # K1's launch and, when its groups' tails share chunks, the launch adding their sums
     records["smpl_moments"]["device_ms"] = kernel_device_ms(lambda: cuda_lbs.smpl_moments(*args), "moments", 20)
-    renderer, sv = training_screen(smpl, TRAIN_B, seed=42)
+    renderer, sv = _cases().training_screen(smpl, TRAIN_B, seed=42)
     attrs = torch.randn((TRAIN_B, renderer.dp["faces"].shape[0], 4), generator=torch.Generator("cuda").manual_seed(44),
                         device="cuda")
     records["raster"]["device_ms"] = kernel_device_ms(  # both passes and their memsets: all the call's device work
@@ -1300,7 +1306,6 @@ def train_full_width(smpl, cfg):
     from humaniflow_torch.data.augmentation import Draws
     from humaniflow_torch.models import HumaniflowModel
     from humaniflow_torch.pipelines import make_optimizer, make_synth_data_fn, make_train_step, train_humaniflow
-    from humaniflow_torch.utils.profiling import wall_ms
 
     renderer = _training_renderer()
     rng = np.random.default_rng(61)
@@ -1479,7 +1484,6 @@ def check_tiled_raster(smpl):
     import torch
 
     from humaniflow_torch.render import cuda_tiled
-    from humaniflow_torch.utils.profiling import cuda_ms, sliver_case
 
     renderer = _vis_renderer("tiled")
     faces = renderer.dp["faces"]
@@ -1489,7 +1493,7 @@ def check_tiled_raster(smpl):
     cases += [(f"ragged faces at {img}²", img, *_tiled_ragged(img)) for img in (128, 384)]
     # near-degenerate faces whose rounding claims pixels beyond their boxes:
     # the cull inside the chunks must skip none that the formula keeps
-    cases.append((f"sliver stress, 2,400 faces at {IMG}²", IMG, *sliver_case(IMG)))
+    cases.append((f"sliver stress, 2,400 faces at {IMG}²", IMG, *_cases().sliver_case(IMG)))
     for name, img, s, f in cases:
         got = cuda_tiled.rasterize_tiled(s, f, img)
         torch.cuda.synchronize()
@@ -1561,7 +1565,6 @@ def check_lbs_skin():
     import torch
 
     from humaniflow_torch.models import cuda_lbs
-    from humaniflow_torch.utils.profiling import cuda_ms
 
     g = torch.Generator("cuda").manual_seed(81)
     w = torch.softmax(3.0 * torch.randn((V, 24), generator=g, device="cuda"), -1)
@@ -1704,7 +1707,6 @@ def optimise_and_visualise(model, smpl, cfg, pred):
     from humaniflow_torch.models import smpl_forward
     from humaniflow_torch.ops import aa_rotate_translate_points, so3_exp
     from humaniflow_torch.pipelines import make_optimise_fn
-    from humaniflow_torch.utils.profiling import wall_ms
     from humaniflow_torch.utils.sampling import joints2d_error_sorted_verts_sampling
     from humaniflow_torch.utils.visualise import (
         render_point_est_visualisation,
@@ -1784,14 +1786,13 @@ def profile_optimise(model, smpl, pred):
 
     from humaniflow_torch.configs import get_optimise_cfg_defaults
     from humaniflow_torch.pipelines import make_optimise_fn
-    from humaniflow_torch.utils.profiling import device_profile, wall_ms
 
     init = _optimise_init(pred, smpl, seed=91)
     res = {}
     for iters in (1, 5):
         fn = make_optimise_fn(model, smpl, dataclasses.replace(get_optimise_cfg_defaults(), NUM_ITERS=iters),
                               img_wh=IMG)
-        res[iters] = (wall_ms(lambda: fn(init), 3), device_profile(lambda: fn(init), iters=2))
+        res[iters] = (wall_ms(lambda: fn(init), 3), _device_profile(lambda: fn(init), 2))
     wall = (res[5][0] - res[1][0]) / 4
     busy = (res[5][1]["device_busy_ms"] - res[1][1]["device_busy_ms"]) / 4
     launches = (res[5][1]["launches"] - res[1][1]["launches"]) / 4
@@ -1833,7 +1834,6 @@ def flow_menu(smpl, cfg, proxy, default_timings):
     from humaniflow_torch.flows import cuda_level
     from humaniflow_torch.models import HumaniflowModel, smpl_forward, smpl_vertex_moments
     from humaniflow_torch.pipelines import make_optimizer, make_synth_data_fn, make_train_step
-    from humaniflow_torch.utils.profiling import wall_ms
 
     renderer = _training_renderer()
     gen = torch.Generator("cuda").manual_seed(71)
@@ -1842,7 +1842,6 @@ def flow_menu(smpl, cfg, proxy, default_timings):
     inputs[0] = (inputs[0] - 0.5) * 0.6
     default_ms = default_timings["synth_ms"] + default_timings["step_ms"]
     launches = {}
-    _set_fused(True)
     for variant in MENU:
         name = "/".join(str(v) for v in variant[:2]) + (" + BatchNorm" if variant[2] else "")
         vcfg = _menu_cfg(cfg, *variant)
@@ -1894,7 +1893,6 @@ def flow_menu(smpl, cfg, proxy, default_timings):
               + (f"; BatchNorm statistics moved by {min(moved.values()):.3e}-{max(moved.values()):.3e}"
                  if variant[2] else ""))
         del model, opt, step
-    _set_fused(False)
     check_train_step_against_cpu(_menu_cfg(cfg, *MENU[0]))
     return launches
 
@@ -2178,11 +2176,11 @@ def _mesh_ssp3d(model, smpls, cfg, mesh):
     import torch
 
     from humaniflow_torch.pipelines import EVAL_METRICS_SSP3D, evaluate_humaniflow
-    from humaniflow_torch.utils.profiling import SyntheticEvalDataset
 
     _zero_counts()
-    final = evaluate_humaniflow(model, *smpls, cfg, SyntheticEvalDataset(B, IMG), EVAL_METRICS_SSP3D, batch_size=B,
-                                num_pred_samples=N, renderer=_counting_renderer(img_wh=IMG, render_rgb=False),
+    final = evaluate_humaniflow(model, *smpls, cfg, _cases().SyntheticEvalDataset(B, IMG), EVAL_METRICS_SSP3D,
+                                batch_size=B, num_pred_samples=N,
+                                renderer=_counting_renderer(img_wh=IMG, render_rgb=False),
                                 generator=torch.Generator("cuda").manual_seed(11), mesh=mesh)
     return final, _read_counts()
 
@@ -2224,7 +2222,6 @@ def _mesh_rank_nccl(rank, device, cfg):
 
     from humaniflow_torch import parallel
     from humaniflow_torch.pipelines import predict_humaniflow
-    from humaniflow_torch.utils.profiling import wall_ms
 
     t0 = time.perf_counter()
     model, smpls = _rank_setup(cfg)
@@ -2265,9 +2262,8 @@ def _mesh_rank_nccl(rank, device, cfg):
 
 def _mesh_rank_gloo(rank, device, cfg):
     """Phase 16b, a rank of 2 gloo ranks on the one card: the sample split of
-    distribution inference on a 1×2 mesh on the default route (K5, and K1 at
-    (32, 50) on each rank), a
-    data-parallel train step at TRAIN_B (36 a rank) and one SSP-3D batch (16
+    distribution inference on a 1×2 mesh (K5, and K1 at (32, 50) on each
+    rank), a data-parallel train step at TRAIN_B (36 a rank) and one SSP-3D batch (16
     a rank), each at full width."""
     import torch
 
@@ -2283,11 +2279,9 @@ def _mesh_rank_gloo(rank, device, cfg):
     proxy = build_proxy_representation(images, joints2d, conf, cfg)
     out, launches = {}, {}
     infer = parallel.make_sharded_inference_fn(model, smpl, mesh12, num_samples=N)
-    _set_fused(True)  # the sample split on the default route (K5); the rest of the rank eager
     _zero_counts()
     out["infer"] = [x.cpu() for x in infer(proxy, generator=torch.Generator("cuda").manual_seed(7))]
     launches["sample split, 1x2 mesh"] = _read_counts()
-    _set_fused(False)
     out["train"], out["train_grads"], launches["train step, 2 ranks"], _ = _mesh_train(cfg, smpl, mesh, 1)
     out["small_step"] = _mesh_small_step(cfg, mesh)
     out["ssp3d"], launches["SSP-3D batch, 2 ranks"] = _mesh_ssp3d(model, smpls, cfg, mesh)
@@ -2344,13 +2338,13 @@ def _hold_launches(name, every, needed):
             raise AssertionError(f"{name}: rank {rank} did not launch {[k for k, v in total.items() if not v]}")
 
 
-def multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, infer_f, card, cli_files):
+def multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, card, cli_files):
     """Phase 16: the parallel layer on the card.  (a) NCCL at world size 1
     (predict on a 1-D and a 1×1 mesh, the sharded inference program, one
     SSP-3D batch, MESH_STEPS train steps) held to the one-process paths;
-    (b) 2 gloo ranks on the one card (the 1×2 sample split on the default
-    route held to phase 9's (vertices, variance) `infer_f`, K5 once a level
-    on each rank; a train step and an SSP-3D batch held to one process); then the three
+    (b) 2 gloo ranks on the one card (the 1×2 sample split held to phase 4's
+    vertices and variance, K5 once a level on each rank; a train step and
+    an SSP-3D batch held to one process); then the three
     CLIs with --num_devices 1 on phase 15's files.  Returns the ranks'
     launches by path."""
     import torch
@@ -2392,12 +2386,11 @@ def multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, infer_f, card, c
     b = parallel.spawn(_mesh_rank_gloo, 2, "cuda", cfg, backend="gloo")
     wall_b = time.perf_counter() - t0
     verts, var = b["infer"]
-    verts_f, var_f = (x.cpu() for x in infer_f)
-    print(f"16b sample split, 1x2 mesh (gloo, 2 ranks, K5 and K1 at ({B}, {N // 2}) each) vs phase 9: vertices "
-          f"within {float((verts - verts_f).abs().max()):.3e} m, variance within "
-          f"{float((var - var_f).abs().max()):.3e} m^2")
-    torch.testing.assert_close(verts, verts_f, rtol=0, atol=VERTS_ATOL)
-    torch.testing.assert_close(var, var_f, rtol=VAR_RTOL, atol=VAR_ATOL)
+    print(f"16b sample split, 1x2 mesh (gloo, 2 ranks, K5 and K1 at ({B}, {N // 2}) each) vs phase 4: vertices "
+          f"within {float((verts - verts_pe.cpu()).abs().max()):.3e} m, variance within "
+          f"{float((var - vertex_var.cpu()).abs().max()):.3e} m^2")
+    torch.testing.assert_close(verts, verts_pe.cpu(), rtol=0, atol=VERTS_ATOL)
+    torch.testing.assert_close(var, vertex_var.cpu(), rtol=VAR_RTOL, atol=VAR_ATOL)
     for rank, per_path in enumerate(b["launches"]):
         if per_path["sample split, 1x2 mesh"]["flow_level"] != len(model.levels):
             raise AssertionError(f"16b sample split: rank {rank} launched K5 "
@@ -2509,11 +2502,7 @@ def mesh_clis(cli_files):
 def _pw3d_helpers():
     """tests/_torch_pw3d.py: the fabricated release and the checks shared with
     the CPU tests (numpy and OpenCV only)."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    try:
-        return importlib.import_module("_torch_pw3d")
-    finally:
-        sys.path.pop(0)
+    return tests_module("_torch_pw3d")
 
 
 def _logged_rotations(release, names, device):
@@ -2712,19 +2701,6 @@ def prepare_pw3d(smpl, cli_files):
 
 
 def main() -> int:
-    """Run the phases with the fused-level switch set as each needs it, and
-    restore the caller's setting afterwards."""
-    saved = os.environ.get("HFT_FUSED_LEVEL")
-    try:
-        return _main()
-    finally:
-        if saved is None:
-            os.environ.pop("HFT_FUSED_LEVEL", None)
-        else:
-            os.environ["HFT_FUSED_LEVEL"] = saved
-
-
-def _main() -> int:
     import torch
 
     import humaniflow_torch  # noqa: F401  (fails outside the repository)
@@ -2738,9 +2714,6 @@ def _main() -> int:
     from humaniflow_torch.models import HumaniflowModel, smpl_forward, smpl_vertex_moments, synthetic_smpl
     from humaniflow_torch.pipelines import EVAL_METRICS_3DPW, EVAL_METRICS_SSP3D, predict_humaniflow
     from humaniflow_torch.utils.cuda_build import build_all
-    from humaniflow_torch.utils.profiling import cuda_ms, device_profile, flow_route, kernel_counts, wall_ms
-
-    _set_fused(False)  # phases 1-7: the eager flow
 
     # ---- phase 1: the card and the build
     smi = subprocess.run(
@@ -2766,14 +2739,29 @@ def _main() -> int:
     records = check_kernels(smpl)
     check_against_cpu(model, smpl, cfg)
 
-    # ---- phase 3: predict_humaniflow at B=32, N=100 (the main path)
+    # ---- phase 3: predict_humaniflow at B=32, N=100 (the main path); its first call captures the CUDA graph
     images, joints2d, conf = _inputs(B)
+
+    def predict_seed7():
+        return predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
+                                  generator=torch.Generator("cuda").manual_seed(7))
+
     _zero_counts()
-    pred = predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
-                              generator=torch.Generator("cuda").manual_seed(7))
+    pred, graph = _graph_counts(predict_seed7)
     path_launches = {"predict": _read_counts()}
-    if path_launches["predict"]["smpl_verts"] == 0:
-        raise AssertionError("predict_humaniflow did not launch K2")
+    if graph != {"graph_captures": 1, "graph_replays": 0}:
+        raise AssertionError(f"predict's first call did not capture its graph: {graph}")
+    c = path_launches["predict"]
+    if c["flow_level"] != len(model.levels) or c["smpl_verts"] == 0:
+        raise AssertionError(f"predict: K5 launched {c['flow_level']} times (one AR pass has {len(model.levels)} "
+                             f"levels), K2 {c['smpl_verts']} times")
+    # the same call again: a replay of that graph, bit for bit the capture's (eager) outputs
+    pred_r, graph = _graph_counts(predict_seed7)
+    if graph != {"graph_captures": 0, "graph_replays": 1}:
+        raise AssertionError(f"predict's second call did not replay its graph: {graph}")
+    for k in pred:
+        if not torch.equal(pred_r[k], pred[k]):
+            raise AssertionError(f"the graph's replay moves {k} from the capture's eager outputs")
     shapes = {
         "verts_point_est": (B, V, 3), "tpose_verts": (B, V, 3), "verts_samples": (B, N, V, 3),
         "joints_samples": (B, N, 90, 3), "vertex_uncertainty_l2": (B, V),
@@ -2820,9 +2808,10 @@ def _main() -> int:
 
     _zero_counts()
     verts_pe, vertex_var = distribution_inference(7)
-    path_launches["distribution inference"] = _read_counts()
-    if path_launches["distribution inference"]["smpl_moments"] == 0:
-        raise AssertionError("the distribution-inference program did not launch K1")
+    c = path_launches["distribution inference"] = _read_counts()
+    if c["smpl_moments"] == 0 or c["flow_level"] != len(model.levels):
+        raise AssertionError(f"the distribution-inference program launched K1 {c['smpl_moments']} times and K5 "
+                             f"{c['flow_level']} times")
     want_var = (pred["vertex_uncertainty_directional"] ** 2).sum(-1)
     var_err = float((vertex_var - want_var).abs().max())
     print(f"variance from K1 moments vs predict's samples: max abs diff {var_err:.3e} m^2 "
@@ -2874,86 +2863,19 @@ def _main() -> int:
           f"metrics {split['metrics_ms']:.2f} ms")
 
     # ---- phase 7: the 3DPW protocol, B=32, N=10
-    pw3d_final, path_launches["3DPW"], pw3d_img_s = run_protocol(model, smpls, cfg, EVAL_METRICS_3DPW, 10)
-    if path_launches["3DPW"]["smpl_verts"] == 0:
-        raise AssertionError("the 3DPW protocol did not launch K2")
+    _, path_launches["3DPW"], pw3d_img_s = run_protocol(model, smpls, cfg, EVAL_METRICS_3DPW, 10)
+    c = path_launches["3DPW"]
+    if c["smpl_verts"] == 0 or c["flow_level"] != PROTOCOL_BATCHES * len(model.levels):
+        raise AssertionError(f"the 3DPW protocol launched K2 {c['smpl_verts']} times and K5 {c['flow_level']} times, "
+                             f"not once a level of each of its {PROTOCOL_BATCHES} batches")
     print(f"3DPW protocol B={B} N=10: {pw3d_img_s:.2f} img/s over {PROTOCOL_BATCHES - 1} batches after a warm-up")
 
     # ---- phase 8: K5 against its plain twin on every depth level
     records["flow_level"], k5_timing = check_flow_level(model, proxy)
 
-    # ---- phase 9: the default route on the main path (K5 under inference mode)
-    _set_fused(True)
-    _zero_counts()
-    pred_f, graph = _graph_counts(lambda: predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
-                                                             generator=torch.Generator("cuda").manual_seed(7)))
-    path_launches["predict, fused level"] = _read_counts()
-    if graph != {"graph_captures": 1, "graph_replays": 0}:
-        raise AssertionError(f"predict's first call on the default route did not capture its graph: {graph}")
-    # the same call again: a replay of that graph, bit for bit the capture's (eager) outputs
-    pred_r, graph = _graph_counts(lambda: predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
-                                                             generator=torch.Generator("cuda").manual_seed(7)))
-    if graph != {"graph_captures": 0, "graph_replays": 1}:
-        raise AssertionError(f"predict's second call on the default route did not replay its graph: {graph}")
-    for k in pred_f:
-        if not torch.equal(pred_r[k], pred_f[k]):
-            raise AssertionError(f"the graph's replay moves {k} from the capture's eager outputs")
-    _zero_counts()
-    verts_pe_f, vertex_var_f = distribution_inference(7)
-    path_launches["distribution inference, fused level"] = _read_counts()
-    for path in ("predict, fused level", "distribution inference, fused level"):
-        c = path_launches[path]
-        if c["flow_level"] != len(model.levels) or c["smpl_verts"] == 0:
-            raise AssertionError(f"{path}: K5 launched {c['flow_level']} times (one AR pass has {len(model.levels)} "
-                                 f"levels), K2 {c['smpl_verts']} times")
-    if path_launches["distribution inference, fused level"]["smpl_moments"] == 0:
-        raise AssertionError("the fused distribution-inference program did not launch K1")
-    for route, got in (("fused", pred_f), ("fused, graph replay", pred_r)):
-        diffs = {k: float((got[k] - pred[k]).abs().max())
-                 for k in ("pose_rotmats_point_est", "pose_rotmats_samples", "verts_point_est", "verts_samples")}
-        print(f"{route} vs eager flow, same noise, max abs diff: "
-              + ", ".join(f"{k} {d:.3e}" for k, d in diffs.items()))
-        for k, d in diffs.items():
-            tol = FUSED_ROT_ATOL if "rotmats" in k else SLICE_ATOL
-            if not d <= tol:
-                raise AssertionError(f"the fused level ({route}) moves {k} by {d} > {tol}")
-    torch.testing.assert_close(verts_pe_f, verts_pe, rtol=0, atol=SLICE_ATOL)
-    torch.testing.assert_close(vertex_var_f, vertex_var, rtol=FUSED_VAR_RTOL, atol=VAR_ATOL)
-    with torch.inference_mode():
-        mode_f = model.apply(pred_f["proxy_rep"])
-    sample0_f = float((mode_f["pose_rotmats_point_est"] - pred_f["pose_rotmats_point_est"]).abs().max())
-    print(f"fused level: sample 0 vs separate point-estimate pass: max abs diff {sample0_f:.3e}")
-    if not sample0_f <= SAMPLE0_ATOL:
-        raise AssertionError(f"fused level: sample 0 is not the point estimate: {sample0_f}")
-    pw3d_f, c, _ = run_protocol(model, smpls, cfg, EVAL_METRICS_3DPW, 10)
-    path_launches["3DPW, fused level"] = c
-    if c["flow_level"] != PROTOCOL_BATCHES * len(model.levels):
-        raise AssertionError(f"the 3DPW protocol on the default route launched K5 {c['flow_level']} times, not once a "
-                             f"level of each of its {PROTOCOL_BATCHES} batches")
-    worst = max(abs(pw3d_f[m] - w) / max(abs(w), 1e-30) for m, w in pw3d_final.items())
-    print(f"3DPW protocol N=10 on the default route (K5, {c['flow_level']} launches) vs phase 7's eager flow: final "
-          f"metrics within {worst:.3e} relative")
-    if set(pw3d_f) != set(pw3d_final) or not worst <= METRIC_RTOL:
-        raise AssertionError(f"the 3DPW protocol on the default route moves its metrics by {worst} relative")
-    turns = {"eager": [], "fused": []}
-    for on in (False, True, True, False):  # in turns, on one card
-        _set_fused(on)
-        turns["fused" if on else "eager"].append((
-            wall_ms(lambda: predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N,
-                                               generator=gen.manual_seed(8)), 5),
-            cuda_ms(lambda: distribution_inference(9), 10),
-            wall_ms(lambda: model_forward(gen.manual_seed(9)), 10),
-        ))
-    for name, runs in turns.items():
-        p_ms, d_ms, f_ms = (sum(r[i] for r in runs) / len(runs) for i in range(3))
-        print(f"{name} flow, B={B} N={N}: predict {p_ms:.2f} ms/batch, {B / p_ms * 1e3:.1f} img/s; distribution "
-              f"inference {d_ms:.2f} ms, {B / d_ms * 1e3:.1f} img/s; model forward wall {f_ms:.2f} ms "
-              f"(two turns: {', '.join(f'{r[0]:.2f}/{r[1]:.2f}/{r[2]:.2f}' for r in runs)})")
-
-    # ---- phase 10: uncropped-image predict, HRNet-W48 at 384×288, the default route (K5)
+    # ---- phase 10: uncropped-image predict, HRNet-W48 at 384×288
     ph = importlib.import_module("humaniflow_torch.pipelines.predict_hrnet")  # the module, not the function
 
-    _set_fused(True)
     uimages = _uncropped_images(B, seed=31)
     for name, dtype in (("float32", None), ("bf16", torch.bfloat16)):
         hrnet = _damped_hrnet(dtype=dtype)
@@ -2961,7 +2883,7 @@ def _main() -> int:
         (out, _, passes), graph = _graph_counts(lambda: uncropped_predict(model, smpl, cfg, hrnet, uimages, seed=32))
         path_launches[f"uncropped predict, HRNet {name}"] = _read_counts()
         if graph != {"graph_captures": 0, "graph_replays": 1}:  # its K5 and K2 kernels: the profiler, last
-            raise AssertionError(f"uncropped predict ({name}) did not replay phase 9's graph: {graph}")
+            raise AssertionError(f"uncropped predict ({name}) did not replay phase 3's graph: {graph}")
         for k, shape in {**shapes, "cropped_images": (B, 384, 288, 3), "joints2D": (B, 17, 2)}.items():
             if tuple(out[k].shape) != shape:
                 raise AssertionError(f"uncropped predict: {k} has shape {tuple(out[k].shape)}, expected {shape}")
@@ -2984,7 +2906,6 @@ def _main() -> int:
         del hrnet
 
     # ---- phase 11: training
-    _set_fused(False)
     records["raster"] = check_raster(smpl)
     check_smpl_verts_plans(smpl, records["smpl_verts"])
     records["smpl_verts_backward"] = check_smpl_backward(smpl)
@@ -3009,8 +2930,7 @@ def _main() -> int:
         path_launches.update(cli_launches)
 
         # ---- phase 16: the parallel layer (NCCL at world size 1, 2 gloo ranks on the card, the CLIs' flags)
-        path_launches.update(multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, (verts_pe_f, vertex_var_f),
-                                          card, (cli_root, ckpt)))
+        path_launches.update(multi_device(model, smpls, cfg, pred, verts_pe, vertex_var, card, (cli_root, ckpt)))
 
         # ---- phase 17: data preparation (3DPW preprocessing, HRNet keypoints) to evaluation
         path_launches.update(prepare_pw3d(smpl, (cli_root, ckpt)))
@@ -3018,24 +2938,17 @@ def _main() -> int:
 
     # ---- profiler measurements, last: a profiler session leaves the host
     # slower for the rest of the process.  K5's device time per level, then
-    # the forward's device time and launches per batch in both settings.
+    # the kernels inside one replay of phase 3's graph, which phase 10 replays too.
     time_flow_level(model.flow, records["flow_level"], k5_timing)
-    _set_fused(True)  # the kernels inside one replay of phase 9's graph, which phase 10 replays too
 
     def predict_f():
         return predict_humaniflow(model, smpl, cfg, images, joints2d, conf, num_samples=N, generator=gen.manual_seed(8))
 
     predict_f()  # the graph, captured again if a later phase's shapes pushed it out
-    seen, graph = _graph_counts(lambda: kernel_counts(predict_f, ("flow_level_kernel", "smpl_verts_kernel")))
+    seen, graph = _graph_counts(lambda: _cases().kernel_counts(predict_f, ("flow_level_kernel", "smpl_verts_kernel")))
     print(f"one replay of distribution inference's graph, kernels by name (torch.profiler): {seen}")
     if graph["graph_captures"] or seen != {"flow_level_kernel": len(model.levels), "smpl_verts_kernel": 3}:
         raise AssertionError(f"a replay of the graph did not run K5 once a level and K2 3 times: {seen}, {graph}")
-    for on in (False, True):
-        _set_fused(on)
-        prof = device_profile(lambda: model_forward(gen.manual_seed(9)), iters=5)
-        print(f"model forward, {flow_route(model)}: device busy {prof['device_busy_ms']:.2f} ms, "
-              f"{prof['launches']:.0f} kernel launches per batch")
-    _set_fused(False)
     profile_optimise(model, smpl, pred)
     profile_smpl_backward(smpl, records["smpl_verts_backward"])
     profile_kernel_device_times(smpl, records)

@@ -17,15 +17,15 @@ composite onto the original image `_uncrop.png` and the per-vertex variance
 scatter `_xyz_variance.png`.  Runs on CUDA unless --device names another
 device; without checkpoints it warns and uses seeded random weights.
 Images are read and written with OpenCV.  The flow runs through the fused
-level kernel K5, as every pass with grad mode off does; HFT_FUSED_LEVEL=0
-runs it eager.  --num_devices N runs distribution
-inference on N ranks, one process a device (NCCL on CUDA, gloo on the CPU;
-parallel/), each on its block of the images; with --sample_devices S as
-well, the ranks form a (N / S, S) ("data", "sample") mesh whose "sample"
-axis splits the N-sample SMPL stage.  The keypoint stage, the crops, the files
-and the figures run on rank 0.  --trace_spans PATH records the program's
-spans (utils/tracing.py) through the run and writes their summary to PATH
-as JSON (rank 0's with --num_devices).
+level kernel K5, as every pass with grad mode off does.  --num_devices N
+runs distribution inference on N ranks, one process a device (NCCL on
+CUDA, gloo on the CPU; parallel/), each on its block of the images; with
+--sample_devices S as well, the ranks form a (N / S, S) ("data",
+"sample") mesh whose "sample" axis splits the N-sample SMPL stage.  The
+keypoint stage, the crops, the files and the figures run on rank 0.
+--trace_spans PATH records the program's spans (utils/tracing.py) through
+the run and writes their summary to PATH as JSON (rank 0's with
+--num_devices).
 """
 
 import argparse

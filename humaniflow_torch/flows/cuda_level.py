@@ -340,6 +340,14 @@ def _cache_key(flow: ConditionalFlow) -> tuple:
                  for t in (*m.hypernet.weights, *m.hypernet.biases))
 
 
+def pack_state(flow: ConditionalFlow) -> tuple:
+    """What a CUDA graph whose K5 launches read `flow`'s packs must know of
+    them: (the pack key, which changes when a cached pack goes stale, the
+    flow's cached packs, which the graph keeps alive, as its launches read
+    their addresses)."""
+    return _cache_key(flow), list(_PLANS.get(flow, {}).values())
+
+
 def _cached_plan(flow: ConditionalFlow, c_dim: int, device) -> _Params:
     """level_params with the pack's address; built once per flow, context
     width and device, and again when a hypernet tensor moves, changes shape

@@ -74,7 +74,7 @@ def forward_plan(b: int, v: int, sms: int = 132) -> int:
     `sms` SMs: the first (largest) of FORWARD_PLANS whose grid gives each SM
     three blocks, else the smallest.  A larger group reads the basis fewer
     times; a grid that leaves SMs short of blocks leaves the loads' latency
-    unhidden (utils/profiling.py --plans times every group at the paths'
+    unhidden (kernel_times.py --plans times every group at the paths'
     row counts)."""
     for i, (rows, verts) in enumerate(FORWARD_PLANS):
         if -(-v // verts) * -(-b // rows) >= 3 * sms:

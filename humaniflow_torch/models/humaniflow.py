@@ -16,7 +16,6 @@ BatchNorm layers, `update_pose_flow_batchnorm_stats` moves their running
 statistics after the optimizer's step.
 """
 
-import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -179,16 +178,13 @@ class HumaniflowModel(nn.Module):
         when grad mode is off, as under the predict and evaluate entries'
         inference_mode, and `supports_flow` accepts the flow (its structure
         and every limit of the kernel).  K5 has no backward, so a forward
-        under grad runs eager.  HFT_FUSED_LEVEL=0 forces the eager flow, the
-        reference the card tests hold K5 against.  The JAX package keeps its
-        switch off by default and reads it when it traces; eager PyTorch has
-        no trace, so the variable and grad mode are read on every call.  On
-        CUDA the fused route launches K5; on the CPU its plain twin runs,
-        the same `self.flow` call as the eager route, as the JAX package runs
-        the Pallas kernel in interpret mode off the TPU."""
-        if torch.is_grad_enabled() or os.environ.get("HFT_FUSED_LEVEL") == "0":
-            return False
-        return cuda_level.supports_flow(self.flow)
+        under grad runs eager, as does a flow the kernel does not take.
+        This is the one place the route is decided; eager PyTorch has no
+        trace, so grad mode is read on every call.  On CUDA the fused route
+        launches K5; on the CPU its plain twin runs, the same `self.flow`
+        call as the eager route, as the JAX package runs the Pallas kernel
+        in interpret mode off the TPU."""
+        return not torch.is_grad_enabled() and cuda_level.supports_flow(self.flow)
 
     def _autoregress(self, isgc, level_noise=None, zero_sample0=False):
         """Depth-level autoregressive pass.

@@ -207,9 +207,9 @@ _GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()  # model → 
 
 def _graph_route(model: HumaniflowModel, device: torch.device, mesh) -> bool:
     """Whether a call replays a CUDA graph: on CUDA, with no mesh (the body's
-    collectives stay eager) and on K5's route (grad mode off and
-    HFT_FUSED_LEVEL not 0: the eager flow's Permute indexes by a host list,
-    which a capture refuses)."""
+    collectives stay eager) and on K5's route (the model's rule: grad mode
+    off and a flow K5 takes; the eager flow's Permute indexes by a host
+    list, which a capture refuses)."""
     return device.type == "cuda" and mesh is None and model._fused_level_enabled()
 
 
@@ -229,7 +229,7 @@ def _state_key(model: HumaniflowModel, smpl: SMPLModel) -> tuple:
     a write in place needs no new capture, but K5 reads a packed copy of the
     hypernet's, remade on such a write (flows/cuda_level.py)."""
     tensors = [*model.parameters(), *model.buffers(), *(v for v in vars(smpl).values() if isinstance(v, torch.Tensor))]
-    return tuple(t.data_ptr() for t in tensors), cuda_level._cache_key(model.flow)
+    return tuple(t.data_ptr() for t in tensors), cuda_level.pack_state(model.flow)[0]
 
 
 def _capture(body, inputs: List[torch.Tensor]):
@@ -294,7 +294,7 @@ def _graphed_predict(model: HumaniflowModel, smpl: SMPLModel, num_samples: int, 
         return _predict_body(model, smpl, num_samples, True, None, proxy, None, list(noise))
 
     static, graph, out, first = _capture(body, inputs)
-    keep = (smpl, list(cuda_level._PLANS.get(model.flow, {}).values()))
+    keep = (smpl, cuda_level.pack_state(model.flow)[1])
     graphs[key] = _Graphed(state, keep, static, graph, out)
     count("graph_captures", 1)
     return first

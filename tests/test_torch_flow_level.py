@@ -2,10 +2,12 @@
 the CPU: `supports_flow`, the level forward of every depth level (the JAX
 Pallas kernel in interpret mode and the JAX XLA flow against the port's
 plain twin, which is what K5 computes on the card) and the whole model with
-HFT_FUSED_LEVEL=1 on both sides, with the same weights and noise.  Then the
-port's routing rule: a pass takes the fused route exactly when grad mode is
-off and `supports_flow` accepts the flow (its structure and every limit the
-wrapper enforces); HFT_FUSED_LEVEL=0 forces the eager flow."""
+the JAX package's switch HFT_FUSED_LEVEL=1, with the same weights and noise.
+Then the port's routing rule: a pass takes the fused route exactly when
+grad mode is off and `supports_flow` accepts the flow (its structure and
+every limit the wrapper enforces), whatever the JAX package's switch reads.
+A test that wants the eager flow of a flow K5 takes stands `supports_flow`
+in with a refusal."""
 
 import dataclasses
 
@@ -151,18 +153,18 @@ def test_level_params_rejects_widths_the_kernel_does_not_hold():
 
 
 def test_autoregress_routes_each_level_through_the_wrapper(models, monkeypatch):
-    """With the switch on, _autoregress calls flow_forward_level once per
-    level (on the CPU it computes the twin and counts no launch); with the
-    switch off, never.  The switch is read on every call."""
+    """With supports_flow accepting the flow, _autoregress calls
+    flow_forward_level once per level (on the CPU it computes the twin and
+    counts no launch); with it refusing, never.  The rule is read on every
+    call."""
     _, _, tm = models
     calls = _spy_on_the_wrapper(monkeypatch)
     isgc = torch.randn((2, 4, tm.isgc_dim), generator=torch.Generator().manual_seed(0))
     before = cuda_level.LAUNCHES["flow_level"]
     with torch.no_grad():
-        monkeypatch.setenv("HFT_FUSED_LEVEL", "1")
         on = tm._autoregress(isgc)
         assert calls == list(tm.levels)
-        monkeypatch.setenv("HFT_FUSED_LEVEL", "0")
+        _refuse_k5(monkeypatch)
         off = tm._autoregress(isgc)
     assert len(calls) == len(tm.levels) and cuda_level.LAUNCHES["flow_level"] == before
     for a, b in zip(on, off):
@@ -170,9 +172,10 @@ def test_autoregress_routes_each_level_through_the_wrapper(models, monkeypatch):
 
 
 def test_fused_model_matches_jax_fused_model(models, monkeypatch):
-    """apply(num_samples=3) with HFT_FUSED_LEVEL=1 on both sides: the port's
-    twin against the JAX Pallas kernel in interpret mode, same weights and
-    the JAX model's own noise."""
+    """apply(num_samples=3), the JAX side with its switch HFT_FUSED_LEVEL=1
+    and the port on its default route (grad off): the port's twin against
+    the JAX Pallas kernel in interpret mode, same weights and the JAX
+    model's own noise."""
     jm, jparams, tm = models
     proxy = np.random.default_rng(11).normal(size=(B, IMG, IMG, 18)).astype(np.float32)
     key = jax.random.PRNGKey(12)
@@ -211,6 +214,11 @@ def _spy_on_the_wrapper(monkeypatch):
     return calls
 
 
+def _refuse_k5(monkeypatch):
+    """The eager flow for every model from here on: supports_flow refuses."""
+    monkeypatch.setattr(cuda_level, "supports_flow", lambda flow: False)
+
+
 def _set_switch(monkeypatch, switch):
     if switch is None:
         monkeypatch.delenv("HFT_FUSED_LEVEL", raising=False)
@@ -224,15 +232,15 @@ def _set_switch(monkeypatch, switch):
 def test_routing_rule(port_models, monkeypatch, switch, grad, flow):
     """_autoregress calls flow_forward_level once per level exactly where
     the rule routes the pass to K5, and never elsewhere: when grad mode is
-    off and supports_flow accepts the flow, unless HFT_FUSED_LEVEL=0; any
-    other value (1, the JAX package's switch) is the default."""
+    off and supports_flow accepts the flow.  The port ignores the JAX
+    package's HFT_FUSED_LEVEL: unset, 0 and 1 route alike."""
     tm = port_models[flow]
     assert cuda_level.supports_flow(tm.flow) == (flow == "default")
     calls = _spy_on_the_wrapper(monkeypatch)
     _set_switch(monkeypatch, switch)
     isgc = torch.randn((2, 3, tm.isgc_dim), generator=torch.Generator().manual_seed(1))
     noise = tm._draw_level_noise((2, 3), torch.Generator().manual_seed(2))
-    fused = flow == "default" and not grad and switch != "0"
+    fused = flow == "default" and not grad
     with torch.set_grad_enabled(grad):
         assert tm._fused_level_enabled() == fused
         so3, rot = tm._autoregress(isgc, noise)
@@ -255,7 +263,7 @@ _BEYOND_K5 = {
 def test_a_flow_beyond_k5s_limits_routes_eager(monkeypatch, case):
     """A default-kind flow that the wrapper would refuse (level_params or
     the shared-memory check raise) is one supports_flow refuses too, so
-    under inference_mode with HFT_FUSED_LEVEL unset the pass runs eager."""
+    under inference_mode the pass runs eager."""
     _, tcfg = small_cfgs()
     nf = dataclasses.replace(tcfg.MODEL.NORM_FLOW, **_BEYOND_K5[case])
     tm = TorchModel(dataclasses.replace(tcfg.MODEL, NORM_FLOW=nf), device="cpu",
@@ -264,7 +272,6 @@ def test_a_flow_beyond_k5s_limits_routes_eager(monkeypatch, case):
     with pytest.raises(ValueError):
         cuda_level.level_params(tm.flow, nf.CONTEXT_DIM, torch.device("cpu"))
     calls = _spy_on_the_wrapper(monkeypatch)
-    _set_switch(monkeypatch, None)
     isgc = torch.randn((2, 3, tm.isgc_dim), generator=torch.Generator().manual_seed(8))
     with torch.inference_mode():
         assert not tm._fused_level_enabled()
@@ -289,12 +296,11 @@ def test_layout_is_the_packs_layout(c_dim, hidden):
 
 def test_train_forward_with_the_switch_unset_runs_eager(port_models, monkeypatch):
     """The train step's forward (grad on, train=True, the teacher-forced
-    contexts, samples) with HFT_FUSED_LEVEL unset: the eager flow, no
-    error, and a gradient that reaches the flow's weights."""
+    contexts, samples) of a flow K5 takes: the eager flow, no error, and a
+    gradient that reaches the flow's weights."""
     tm = TorchModel(port_models["default"].cfg, device="cpu")
     tm.load_state_dict(port_models["default"].state_dict())
     calls = _spy_on_the_wrapper(monkeypatch)
-    _set_switch(monkeypatch, None)
     g = torch.Generator().manual_seed(3)
     proxy = torch.rand((2, IMG, IMG, 18), generator=g)
     pose = so3_exp(0.3 * torch.randn((2, 23, 3), generator=g))
@@ -310,17 +316,19 @@ def test_train_forward_with_the_switch_unset_runs_eager(port_models, monkeypatch
 
 
 def test_inference_default_route_is_the_eager_result_on_the_cpu(port_models, monkeypatch):
-    """Under inference_mode, HFT_FUSED_LEVEL unset (the fused route, whose
-    CPU twin is the flow's own call) gives every output bit for bit as 0."""
+    """Under inference_mode the default route (the fused one, whose CPU twin
+    is the flow's own call) gives every output bit for bit as the eager
+    flow, which a refusing supports_flow forces."""
     tm = port_models["default"]
     calls = _spy_on_the_wrapper(monkeypatch)
     proxy = torch.rand((2, IMG, IMG, 18), generator=torch.Generator().manual_seed(4))
     outs = {}
-    for switch in (None, "0"):
-        _set_switch(monkeypatch, switch)
+    for route in ("default", "eager"):
+        if route == "eager":
+            _refuse_k5(monkeypatch)
         with torch.inference_mode():
-            outs[switch] = tm.apply(proxy, generator=torch.Generator().manual_seed(5), num_samples=3)
+            outs[route] = tm.apply(proxy, generator=torch.Generator().manual_seed(5), num_samples=3)
     assert calls == list(tm.levels)
-    assert set(outs[None]) == set(outs["0"])
-    for k, v in outs["0"].items():
-        assert torch.equal(outs[None][k], v), k
+    assert set(outs["default"]) == set(outs["eager"])
+    for k, v in outs["eager"].items():
+        assert torch.equal(outs["default"][k], v), k

@@ -43,8 +43,9 @@ def _rotations(n, seed):
 @pytest.mark.parametrize("variant", VARIANTS, ids=lambda v: f"{v[0]}-{v[1]}-bn{int(v[2])}")
 def test_model_forward_matches_jax(variant, monkeypatch):
     """From the same encoder features (the encoder is held by
-    tests/test_torch_model.py).  The port runs with HFT_FUSED_LEVEL=1: the
-    fused level refuses these flows, so they run eager, as in JAX."""
+    tests/test_torch_model.py).  HFT_FUSED_LEVEL=1, the JAX package's
+    switch, is set and the port ignores it: its fused level refuses these
+    flows, so they run eager, as in JAX."""
     transform_type, permute_type, batch_norm, extra = variant
     jm, jparams, tm, _, _ = menu_model_pair(transform_type, permute_type, batch_norm, **extra)
     rng = np.random.default_rng(5)

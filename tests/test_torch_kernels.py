@@ -177,7 +177,7 @@ def test_coverage_kernel_matches_plain_bit_for_bit(img, cull_sign):
     assert overflow.tolist() == [1, 1]  # the ragged set's out-of-range face
 
 
-K3_CASES = [  # the names of utils/profiling.py::coverage_cases
+K3_CASES = [  # the names of tests/_torch_cases.py::coverage_cases
     "whole-image face", "all culled, and its mirror all kept",
     "band borders at 1024², NaN vertex, 2 indices out of range", "33², ragged word", "200², ragged word",
     "M=1", "M=257", "2,000 large boxes",
@@ -190,7 +190,7 @@ def test_coverage_kernel_matches_plain_on_edge_cases(name):
     """Bands, cluster shares, the warp walk's two box shapes, the queue of
     large boxes, ragged mask words and the overflow count, bit for bit."""
     _require_cuda()
-    from humaniflow_torch.utils.profiling import coverage_cases
+    from _torch_cases import coverage_cases
 
     sv, faces, img, cull = coverage_cases("cuda")[name]
     mask, overflow = cuda_coverage.coverage(sv, faces, img, cull_sign=cull)
@@ -352,10 +352,19 @@ def test_flow_level_wrapper_rejects_bad_inputs():
             cuda_level.flow_forward_level(model.flow, *args)
 
 
+def _refuse_k5(monkeypatch):
+    """The eager flow for every model while the patch holds: supports_flow
+    refuses, so the route (models/humaniflow.py) never takes K5."""
+    from humaniflow_torch.flows import cuda_level
+
+    monkeypatch.setattr(cuda_level, "supports_flow", lambda flow: False)
+
+
 @pytest.mark.cuda
 def test_fused_level_model_on_the_card(monkeypatch):
-    """apply(num_samples=N) with HFT_FUSED_LEVEL=1 launches K5 once per level
-    and agrees with the eager flow (2e-4, the JAX fused-vs-XLA bound)."""
+    """apply(num_samples=N) on the default route launches K5 once per level
+    and agrees with the eager flow (2e-4, the JAX fused-vs-XLA bound), which
+    a refusing supports_flow forces."""
     _require_cuda()
     from humaniflow_torch.flows import cuda_level
 
@@ -363,9 +372,9 @@ def test_fused_level_model_on_the_card(monkeypatch):
     proxy = torch.rand((4, 64, 64, 18), generator=torch.Generator("cuda").manual_seed(1), device="cuda")
     noise = model._draw_level_noise((4, 10), torch.Generator("cuda").manual_seed(2))
     with torch.inference_mode():
-        monkeypatch.setenv("HFT_FUSED_LEVEL", "0")
-        want = model.apply(proxy, num_samples=10, base_noise=noise, use_shape_mode_for_samples=True)
-        monkeypatch.setenv("HFT_FUSED_LEVEL", "1")
+        with monkeypatch.context() as m:
+            _refuse_k5(m)
+            want = model.apply(proxy, num_samples=10, base_noise=noise, use_shape_mode_for_samples=True)
         before = cuda_level.LAUNCHES["flow_level"]
         got = model.apply(proxy, num_samples=10, base_noise=noise, use_shape_mode_for_samples=True)
         torch.cuda.synchronize()
@@ -381,10 +390,11 @@ CELL_ROT_ATOL = 1e-5
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1])
 def test_default_route_matches_eager_at_the_prediction_cells_shape(monkeypatch, seed):
-    """apply(B=32, N=100) under inference_mode at the default widths: with
-    HFT_FUSED_LEVEL unset the pass takes K5, 8 launches, and its rotations
-    stay within the prediction cells' limit of HFT_FUSED_LEVEL=0's eager
-    flow.  Seeded U(±1/√fan_in) dense weights, as the benchmark draws them."""
+    """apply(B=32, N=100) under inference_mode at the default widths: on the
+    default route the pass takes K5, 8 launches, and its rotations stay
+    within the prediction cells' limit of the eager flow (which a refusing
+    supports_flow forces).  Seeded U(±1/√fan_in) dense weights, as the
+    benchmark draws them."""
     _require_cuda()
     from humaniflow_torch.flows import cuda_level
 
@@ -396,11 +406,11 @@ def test_default_route_matches_eager_at_the_prediction_cells_shape(monkeypatch, 
     shape_noise = torch.randn((b, n, model.cfg.NUM_SMPL_BETAS), generator=g, device="cuda")
     kw = dict(num_samples=n, base_noise=noise, shape_noise=shape_noise)
     with torch.inference_mode():
-        monkeypatch.setenv("HFT_FUSED_LEVEL", "0")
         before = cuda_level.LAUNCHES["flow_level"]
-        want = model.apply(proxy, **kw)
+        with monkeypatch.context() as m:
+            _refuse_k5(m)
+            want = model.apply(proxy, **kw)
         assert cuda_level.LAUNCHES["flow_level"] == before
-        monkeypatch.delenv("HFT_FUSED_LEVEL")
         got = model.apply(proxy, **kw)
         torch.cuda.synchronize()
     assert cuda_level.LAUNCHES["flow_level"] == before + len(model.levels) == before + 8
@@ -484,7 +494,7 @@ def test_a_replay_runs_k5_and_k2_inside_the_graph(b, n):
     kernels' names, though no wrapper launched them."""
     _require_cuda()
     from humaniflow_torch.utils import tracing
-    from humaniflow_torch.utils.profiling import kernel_counts
+    from _torch_cases import kernel_counts
 
     model, smpl, predict, pool = _graph_case(b, n)
     (proxy, noise), (proxy2, noise2) = pool[:2]
@@ -542,20 +552,20 @@ def test_graphed_prediction_follows_an_in_place_load_state_dict(b, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n", GRAPH_SHAPES)
 def test_graphed_prediction_follows_the_fused_level_switch(monkeypatch, b, n):
-    """HFT_FUSED_LEVEL=0 set after a capture and a replay: the next call runs
-    the eager body with the eager flow (no K5 launch, off the graph route)
-    and equals it."""
+    """The route follows supports_flow, the switch of the fused level: made to
+    refuse after a capture and a replay, the next call runs the eager body
+    with the eager flow (no K5 launch, off the graph route) and equals it."""
     _require_cuda()
     model, smpl, predict, pool = _graph_case(b, n)
     for proxy, noise in pool[:2]:
         predict(proxy, None, noise)
-    monkeypatch.setenv("HFT_FUSED_LEVEL", "0")
+    _refuse_k5(monkeypatch)
     proxy, noise = pool[2]
     before = _launches()
     got = predict(proxy, None, noise)
     torch.cuda.synchronize()
     assert tuple(a - c for a, c in zip(_launches(), before)) == (0, 3)
-    _assert_same_bits(got, _eager_prediction(model, smpl, n, proxy, noise), "HFT_FUSED_LEVEL=0")
+    _assert_same_bits(got, _eager_prediction(model, smpl, n, proxy, noise), "supports_flow refusing")
 
 
 
@@ -637,11 +647,11 @@ def _raster_both(sv, faces, img, **kw):
 def test_raster_kernel_matches_plain_across_tiles(img):
     """Image sizes whose tile plan has several row tiles (200, 256) and
     several column tiles too (384, 1024): posed bodies, and at 1024² the
-    faces across band borders of utils/profiling.py::coverage_cases (a NaN
+    faces across band borders of tests/_torch_cases.py::coverage_cases (a NaN
     vertex, two indices out of range)."""
     _require_cuda()
     from humaniflow_torch.render import cuda_raster
-    from humaniflow_torch.utils.profiling import coverage_cases
+    from _torch_cases import coverage_cases
 
     _, _, row_tiles, col_tiles = cuda_raster.tile_plan(img)
     assert row_tiles > 1 and (col_tiles > 1) == (img > cuda_raster.TILE_COLS)
@@ -680,7 +690,7 @@ def test_raster_kernel_matches_plain_with_every_flag(cull_sign, emit_frags, n_li
 
 def _raster_edge_case(name):
     """(verts_screen, faces, image size, cull_sign) of K4's edge cases."""
-    from humaniflow_torch.utils.profiling import coverage_cases, sliver_case
+    from _torch_cases import coverage_cases, sliver_case
 
     if name == "slivers":
         return (*sliver_case(256), 256, 0)
@@ -703,7 +713,7 @@ def _raster_edge_case(name):
                                   "all culled, and its mirror all kept", "non-finite vertices",
                                   "index out of range"])
 def test_raster_kernel_matches_plain_on_edge_cases(name):
-    """Near-degenerate faces (utils/profiling.py::sliver_case), a face over
+    """Near-degenerate faces (tests/_torch_cases.py::sliver_case), a face over
     the whole image, more large boxes than a block's queue holds, a mesh
     whose faces are all culled, NaN and infinite coordinates, and indices
     out of range (overflow equal to the twin's, counted once per mesh)."""
@@ -896,13 +906,13 @@ def test_tiled_raster_kernel_matches_plain_bit_for_bit(img):
 @pytest.mark.cuda
 @pytest.mark.parametrize("img", [128, 256, 384])
 def test_tiled_raster_kernel_matches_plain_on_slivers(img):
-    """utils/profiling.py::sliver_case: 2,400 near-degenerate faces (slivers
+    """tests/_torch_cases.py::sliver_case: 2,400 near-degenerate faces (slivers
     through pixel centres whose rounding claims pixels beyond their tips,
     needles, areas just above 1e-9) on two meshes, bit for bit: the kernel's
     cull skips no face the twin's formula finds inside."""
     _require_cuda()
     from humaniflow_torch.render import cuda_tiled
-    from humaniflow_torch.utils.profiling import sliver_case
+    from _torch_cases import sliver_case
 
     sv, faces = sliver_case(img)
     before = cuda_tiled.LAUNCHES["tiled_raster"]

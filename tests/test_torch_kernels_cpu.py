@@ -26,13 +26,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_cases import sliver_case
 from _torch_parity import rel_err, t
 
 import humaniflow_tpu.models.pallas_lbs as jlbs
 from humaniflow_torch.models import cuda_lbs
 from humaniflow_torch.render import cuda_coverage, cuda_raster, cuda_tiled
 from humaniflow_torch.render.rasterizer import _barycentrics
-from humaniflow_torch.utils.profiling import sliver_case
 
 # Adjoints: within 1e-5 of each tensor's largest |value| (float32 sums in
 # another order; the same bound as K2's gradient against autograd).
@@ -146,7 +146,7 @@ def _cull_soup(rng, n=600):
 
 def test_k6_cull_never_skips_a_face_the_rounded_formula_finds_inside():
     """Every (face, 4×8 sub-block) pair of a 128² image, for the 2,400
-    near-degenerate faces of utils/profiling.py::sliver_case on both its
+    near-degenerate faces of _torch_cases.py::sliver_case on both its
     meshes and 600 more: wherever the exact scan's float32 formula puts a
     pixel centre of the sub-block inside the face, may_cover is True.  The
     slivers' rounding claims pixel centres outside their boxes, so the case
@@ -355,11 +355,11 @@ def test_k1_row_chunks_cover_every_row_once(n):
 
 def _k4_span_cases(img):
     """(verts_screen, faces) at img²: the near-degenerate faces of
-    utils/profiling.py::sliver_case (both meshes), a posed body as the
+    _torch_cases.py::sliver_case (both meshes), a posed body as the
     training render sees it and, at 128², the 600 faces of _cull_soup (on
     the pixel grid, huge, zero-area)."""
     from humaniflow_torch.models import synthetic_smpl
-    from humaniflow_torch.utils.profiling import training_screen
+    from _torch_cases import training_screen
 
     sv, faces = sliver_case(img, device="cpu")
     renderer, body = training_screen(synthetic_smpl(num_verts=6890, device="cpu"), 1, 8, device="cpu", img=img)
